@@ -1,6 +1,6 @@
 """Medium-study analysis: dispatch accuracy + per-regime summary + figure.
 
-Consumes benchmark_results/tpu-v5e/medium_study.csv (run_medium_study.py):
+Consumes benchmark_results/h100/medium_study.csv (run_medium_study.py):
 - dispatch_accuracy: % of portfolio matrices where `auto` lands within 10%
   of the best fixed kernel (the number VERDICT r1 asked for;
   viz/dataset.py::dispatch_accuracy)
@@ -25,13 +25,13 @@ import pandas as pd  # noqa: E402
 from spgrid.viz.dataset import dispatch_accuracy  # noqa: E402
 
 RES = os.path.join(os.path.dirname(__file__), "..", "benchmark_results",
-                   "tpu-v5e")
+                   "h100")
 
 # entity-stable categorical colors (validated default palette slots):
 # one hue per dispatched format family, fixed assignment
 FMT_COLORS = {
-    "dense": "#2a78d6", "bsr_pallas": "#eb6834", "panel_pallas": "#1baf7a",
-    "gell": "#eda100", "wcoo_bands": "#e87ba4", "scoo": "#008300",
+    "dense": "#2a78d6", "bsr_pallas": "#eb6834", "panel": "#1baf7a",
+    "gell": "#eda100", "scoo": "#008300",
     "ell": "#4a3aa7", "coo": "#e34948", "merge": "#7a4ad6",
     "sell": "#13a0a8", "rbh": "#a05a2c",
 }
@@ -92,7 +92,7 @@ def main():
     ax.set_yscale("log")
     ax.set_xlabel("density (nnz / m·k)")
     ax.set_ylabel("GFLOPS (sparse-accounted, auto dispatch)")
-    ax.set_title(f"Medium synthetic study on v5e — auto dispatch "
+    ax.set_title(f"Medium synthetic study on the H100 — auto dispatch "
                  f"({len(auto)} matrices, accuracy {acc*100:.0f}%)")
     ax.legend(fontsize=8)
     fig.tight_layout()

@@ -7,7 +7,7 @@ per mask type x sparsity x precision) against sddmm_occupancy.csv's
 est_speedup_vs_128 and commits the comparison — the planner keeps its
 role only where the measured column confirms it.
 
-Output: benchmark_results/tpu-v5e/sddmm_planner_ab.csv + stdout table.
+Output: benchmark_results/h100/sddmm_planner_ab.csv + stdout table.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 RES = os.path.join(os.path.dirname(__file__), "..", "benchmark_results",
-                   "tpu-v5e")
+                   "h100")
 
 
 def main():

@@ -1,6 +1,6 @@
 """Validation-twin sensitivity analysis + figure (VERDICT r1 item 4).
 
-Consumes benchmark_results/tpu-v5e/validation_twins.csv (run_validation_
+Consumes benchmark_results/h100/validation_twins.csv (run_validation_
 twins.py): for each validation matrix, the base feature-exact twin plus
 +-30% sweeps of avg_nnz_per_row and bw. Emits the APE of each swept twin
 vs its base (the reference's validation-vs-twin APE methodology,
@@ -19,7 +19,7 @@ import matplotlib.pyplot as plt
 import pandas as pd
 
 RES = os.path.join(os.path.dirname(__file__), "..", "benchmark_results",
-                   "tpu-v5e")
+                   "h100")
 
 
 def main():
@@ -50,7 +50,7 @@ def main():
     ax.set_xticks(range(len(mats)))
     ax.set_xticklabels(mats, rotation=30, ha="right", fontsize=8)
     ax.set_ylabel("GFLOPS (auto dispatch, n=512, f32)")
-    ax.set_title("Validation-twin study on v5e: base twins vs ±30% feature"
+    ax.set_title("Validation-twin study on the H100: base twins vs ±30% feature"
                  " perturbations")
     ax.legend()
     fig.tight_layout()

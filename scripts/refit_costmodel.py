@@ -1,8 +1,8 @@
-"""Refit cost-model per-format corrections from all committed TPU rows.
+"""Refit cost-model per-format corrections from all committed GPU rows.
 
-Merges every tpu-v5e result CSV, runs costmodel.fit_constants, and prints
+Merges every benchmark_results/h100/ result CSV, runs costmodel.fit_constants, and prints
 the fitted multiplicative corrections next to the shipped ones.  The
-shipped values (V5eConstants.fudge) are updated by hand from this output
+shipped values (H100_CONSTANTS.fudge) are updated by hand from this output
 — dispatch must not silently change between commits (VERDICT r2 weak #5:
 the refit loop needs a bigger sample than the ~47 rows it rested on).
 """
@@ -19,7 +19,7 @@ from spgrid.ops.costmodel import (  # noqa: E402
 from spgrid.viz.dataset import merge_result_csvs  # noqa: E402
 
 RES = os.path.join(os.path.dirname(__file__), "..", "benchmark_results",
-                   "tpu-v5e")
+                   "h100")
 
 
 def main():
@@ -48,18 +48,6 @@ def main():
         apes = np.array([abs(r["ratio"] - 1.0) * 100 for r in by_fmt[fmt]])
         print(f"{fmt:14s} {len(apes):5d} {np.median(apes):8.1f} "
               f"{np.percentile(apes, 90):8.1f} {apes.max():7.1f}")
-    # wcoo_bands fill-aware slot model: the r3 re-admission was anchored
-    # on two band widths; show its error across the measured bw range so
-    # the AUTO decision is data-backed
-    wb = by_fmt.get("wcoo_bands", [])
-    if wb:
-        print("\nwcoo_bands model error by band width:")
-        for r in sorted(wb, key=lambda r: r["avg_bw_scaled"]):
-            print(f"  bw={r['avg_bw_scaled']:.4f} m={r['m']:>8d} "
-                  f"nnz={r['nnz']:>9d} meas={r['time']*1e6:8.1f}us "
-                  f"pred={r['pred']*1e6:8.1f}us "
-                  f"APE={abs(r['ratio']-1)*100:6.1f}%")
-
     shipped = dict(C.fudge)
     fitted = fit_constants(df)
     print(f"{'format':14s} {'shipped':>8s} {'refit-ratio':>12s} "
@@ -68,7 +56,7 @@ def main():
         print(f"{fmt:14s} {shipped.get(fmt, 1.0):8.3f} "
               f"{fitted.get(fmt, float('nan')):12.3f} "
               f"{C.fudge.get(fmt, 1.0):10.3f}")
-    print("\napply by editing V5eConstants.fudge (spgrid/ops/costmodel.py)")
+    print("\napply by editing H100_CONSTANTS.fudge (spgrid/ops/costmodel.py)")
 
 
 if __name__ == "__main__":

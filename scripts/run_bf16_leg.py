@@ -2,13 +2,13 @@
 
 The reference ships dual `_d`/`_f` builds of every kernel
 (benchmark_code/CPU/AMD/make.sh:98-108) and reports both dtypes; spgrid's
-committed TPU rows were all float32.  This leg measures dtype=bfloat16 —
-where the v5e MXU's 197 TFLOPS lives — on the headline DLMC-twin matrix
+rows were all float32.  This leg measures dtype=bfloat16 — where the
+tensor cores' bf16 rate lives — on the headline DLMC-twin matrix
 plus one matrix per density regime, gated against the dequantized
 (bf16-cast) host gold per the CV-kernel accuracy policy
 (bench/harness.py:218-224; epsilon 3e-2 from core/config.py:91).
 
-Output: benchmark_results/tpu-v5e/bf16_leg.csv (resume; exit 2 on device
+Output: benchmark_results/h100/bf16_leg.csv (resume; exit 2 on device
 poisoning).
 """
 from __future__ import annotations
@@ -23,17 +23,17 @@ from spgrid.bench.schema import CSVWriter  # noqa: E402
 from spgrid.gen.artificial import artificial_matrix_generation  # noqa: E402
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "benchmark_results",
-                   "tpu-v5e", "bf16_leg.csv")
+                   "h100", "bf16_leg.csv")
 
 JOBS = [
     # headline DLMC twin (50% dense transformer weight)
     ("dlmc_twin_512_0.5", dict(m=512, avg=256, std=32, placement="random",
                                bw=1.0, skew=0, neigh=0, crs=0),
-     ["dense", "bsr_pallas", "panel_pallas"]),
+     ["dense", "bsr_pallas", "panel"]),
     # mid-density too big to densify -> panel regime
     ("mid_16k_d2pct", dict(m=16384, avg=328, std=100, placement="random",
                            bw=1.0, skew=0, neigh=1.9, crs=0.25),
-     ["panel_pallas", "bsr_pallas"]),
+     ["panel", "bsr_pallas"]),
     # banded hypersparse -> gell windowed (bf16 X gather + MXU combine)
     ("band_98k", dict(m=98304, avg=8, std=2.6667, placement="random",
                       bw=0.05, skew=0, neigh=0.05, crs=0.5),
@@ -56,7 +56,7 @@ JOBS = [
      ["merge", "gell"]),
     ("wideband_196k", dict(m=196608, avg=6, std=2, placement="diagonal",
                            bw=0.3, skew=0, neigh=0.3, crs=0.5),
-     ["gell", "wcoo_bands"]),
+     ["gell", "sell"]),
     ("giant_band_1m", dict(m=1048576, avg=5, std=1.6667,
                            placement="diagonal", bw=0.02, skew=0,
                            neigh=0.02, crs=0.5),
@@ -67,7 +67,7 @@ JOBS = [
      ["dense", "sell", "merge"]),
     ("dense_2k_d20pct", dict(m=2445, avg=500, std=150, placement="random",
                              bw=0.6, skew=3.9, neigh=0.5, crs=0.5),
-     ["dense", "bsr_pallas", "panel_pallas"]),
+     ["dense", "bsr_pallas", "panel"]),
     ("scirc_twin", dict(m=170998, avg=5.60788, std=4.39216,
                         placement="random", bw=0.29725, skew=61.94716,
                         neigh=0.80336, crs=0.63302),

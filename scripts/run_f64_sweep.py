@@ -1,7 +1,7 @@
 """float64 correctness sweep on the CPU backend (VERDICT r1 item 10:
-populate the dtype axis — the reference ships _d/_f builds; the TPU has
-no native f64, so the f64 leg runs on the host backend like the
-reference's CPU builds, gated at eps=1e-10).
+populate the dtype axis — the reference ships _d/_f builds; this leg
+runs f64 on the host backend like the reference's CPU builds, gated at
+eps=1e-10; f64 on the GPU is a ROADMAP item).
 
 Output: benchmark_results/cpu-f64/f64_correctness.csv
 """

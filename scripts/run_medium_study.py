@@ -12,7 +12,7 @@ runs the fixed kernel portfolio so dispatch accuracy (% of matrices
 where auto lands within 10% of the best fixed kernel) can be computed
 from the CSV (analysis: spgrid/viz/dataset.py::dispatch_accuracy).
 
-Output: benchmark_results/tpu-v5e/medium_study.csv (resumable; exit 2 on
+Output: benchmark_results/h100/medium_study.csv (resumable; exit 2 on
 device poisoning for the retry wrapper).
 """
 from __future__ import annotations
@@ -32,12 +32,12 @@ PARAMS = os.path.join(os.path.dirname(__file__), "..",
                       "matrix_generation_parameters",
                       "synthetic_matrices_medium_dataset.txt")
 OUT = os.path.join(os.path.dirname(__file__), "..", "benchmark_results",
-                   "tpu-v5e", "medium_study.csv")
+                   "h100", "medium_study.csv")
 
 MAX_ROWS = 262144
 TARGET = 500            # r3: VERDICT asked >=500 stratified (was 320)
 PORTFOLIO = ("gell", "cv_gell", "merge", "sell", "ell_xla", "bsr_pallas",
-             "panel_pallas", "dense", "rbh")
+             "panel", "dense", "rbh")
 # r5: every 2nd matrix runs the fixed portfolio (was 4) — the dispatch
 # accuracy sample (n of portfolio matrices) is the binding target now
 # that the gen cache is fully prewarmed

@@ -1,6 +1,6 @@
-"""Representative benchmark sweep on real TPU hardware.
+"""Representative benchmark sweep on the GPU.
 
-Produces the committed artifacts under benchmark_results/tpu-v5e/ the way
+Produces the committed artifacts under benchmark_results/h100/ the way
 the reference commits benchmark_results/amd-epyc7/: a synthetic-dataset
 slice (structure grid), the DLMC-twin SpMM rows, SpMV rows, and the
 attention-pipeline rows, plus the standard plots.
@@ -20,7 +20,7 @@ from spgrid.core.config import BenchConfig
 from spgrid.gen import artificial_matrix_generation, GenParams
 
 OUT = os.path.join(os.path.dirname(__file__), "..", "benchmark_results",
-                   "tpu-v5e")
+                   "h100")
 FAILED = os.path.join(OUT, "failed_attempts.txt")
 MAX_ATTEMPTS = 2
 
@@ -61,8 +61,7 @@ def main():
             rows, rows, avg, round(avg / 3, 4), "normal", 14, "random",
             bw, skew, 0.05, 0.05,
             name=f"synth_4MB_a{avg}_b{bw:g}_s{skew}")
-        for kernel in ("wcoo_pallas", "wcoo_bands", "panel_pallas", "ell_xla",
-                       "auto"):
+        for kernel in ("gell", "sell", "panel", "ell_xla", "auto"):
             key = f"{csr.name}|{kernel}|512"
             if (csr.name, kernel, "512") in done \
                     or attempts.get(key, 0) >= MAX_ATTEMPTS:
@@ -86,7 +85,7 @@ def main():
         csr = artificial_matrix_generation(
             100000, 100000, avg, round(avg / 3, 4), "normal", 14, "random",
             bw, 0, 0.05, 0.05, name=f"synth_100k_a{avg}_b{bw:g}")
-        for kernel in ("wcoo_spmv", "wrow_spmv", "wcoo_bands", "wcoo_pallas"):
+        for kernel in ("csr_xla_coo", "sell", "merge", "gell", "auto"):
             key = f"{csr.name}|{kernel}|1"
             if (csr.name, kernel, "1") in done2 \
                     or attempts.get(key, 0) >= MAX_ATTEMPTS:
@@ -107,7 +106,7 @@ def main():
     csr = artificial_matrix_generation(512, 512, 256, 32, "normal", 14,
                                        "random", 1.0, 0, 0.05, 0.05,
                                        name="dlmc_twin_512_0.5")
-    for kernel in ("dense", "bsr_pallas", "panel_pallas", "gemm_bound"):
+    for kernel in ("dense", "bsr_pallas", "panel", "gemm_bound"):
         key = f"{csr.name}|{kernel}|512"
         if (csr.name, kernel, "512") in done3 \
                 or attempts.get(key, 0) >= MAX_ATTEMPTS:
@@ -154,7 +153,7 @@ def main():
     done5 = w5.done_keys()
     csr5 = csr  # section 3's DLMC twin (identical parameters)
     for n in (8, 32, 128, 512, 2048):
-        for kernel in ("dense", "panel_pallas"):
+        for kernel in ("dense", "panel"):
             key = f"{csr5.name}|{kernel}|{n}"
             if (csr5.name, kernel, str(n)) in done5 \
                     or attempts.get(key, 0) >= MAX_ATTEMPTS:

@@ -11,7 +11,7 @@ The `high` precision column tests the 3-pass-bf16 matmul against the f32
 oracle gate: on occupied-everywhere masks the SDDMM is MXU-bound on a
 dense-shaped Q.K^T, so a passing 3-pass run is a near-2x win.
 
-Output: benchmark_results/tpu-v5e/sddmm_study.csv (+ pipeline rows
+Output: benchmark_results/h100/sddmm_study.csv (+ pipeline rows
 appended to pipeline.csv).
 """
 from __future__ import annotations
@@ -26,7 +26,7 @@ from spgrid.bench.schema import CSVWriter  # noqa: E402
 from spgrid.gen.artificial import artificial_matrix_generation  # noqa: E402
 
 RES = os.path.join(os.path.dirname(__file__), "..", "benchmark_results",
-                   "tpu-v5e")
+                   "h100")
 OUT = os.path.join(RES, "sddmm_study.csv")
 PIPE_OUT = os.path.join(RES, "pipeline.csv")
 LENGTH = 4096
@@ -64,7 +64,7 @@ def main():
                 # est_speedup_vs_128 — this A/B is that validation)
                 for blocks, suff in ((None, ""), ((128, 128), "_b128")):
                     name = f"mask_{LENGTH}_{mtype}_sp{sp}_{prec}{suff}"
-                    if (name, "sddmm_pallas", "512") in done:
+                    if (name, "sddmm_bsr", "512") in done:
                         print("skip", name, flush=True)
                         continue
                     # band_size=None -> the reference band table

@@ -1,6 +1,6 @@
 """Validation-matrix twin study (the real-matrix leg, VERDICT r1 item 4).
 
-This box has zero egress, so the real SuiteSparse .mtx files cannot be
+Without network access the real SuiteSparse .mtx files cannot be
 fetched (io/datasets.py carries the registry + fetch logic for boxes that
 can).  SUBSTITUTION, STATED PLAINLY: each "real" matrix is stood in for by
 its feature-exact artificial twin, generated from the MEASURED feature
@@ -13,7 +13,7 @@ most perf-determining features, reproducing the reference's
 validation-vs-twin APE methodology
 (results_visualization/validation_plotter-SPLITTING.ipynb).
 
-Output: benchmark_results/tpu-v5e/validation_twins.csv
+Output: benchmark_results/h100/validation_twins.csv
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from spgrid.gen.artificial import artificial_matrix_generation  # noqa: E402
 # keys of the committed uncalibrated leg.
 CALIBRATED = os.environ.get("TWINS_CALIBRATED", "") == "1"
 OUT = os.path.join(os.path.dirname(__file__), "..", "benchmark_results",
-                   "tpu-v5e",
+                   "h100",
                    "validation_twins_cal.csv" if CALIBRATED
                    else "validation_twins.csv")
 
@@ -82,43 +82,8 @@ def jobs():
         yield from block
 
 
-def _grid_remainder_first():
-    """Finish the new-kernels grid + probes BEFORE the twins leg.
-
-    Round-4 scheduling: a worker crash burned the skew grid + probe pass,
-    and their re-run sits behind twins/spread/medium in the queue — past
-    the round's wall budget.  The grid answers the round's top open perf
-    question (scattered-hypersparse: dgell vs the 17-33 GF incumbents),
-    so spend up to ~100 min on it here, in a subprocess so this process's
-    backend stays un-initialized until the device is free."""
-    import subprocess
-    import time
-    flag = os.path.join(os.path.dirname(OUT), ".newkernel_probes_done")
-    if os.path.exists(flag) or os.environ.get("SKIP_GRID_FIRST"):
-        return
-    script = os.path.join(os.path.dirname(__file__), "run_newkernels_r3.py")
-    deadline = time.time() + 6000
-    for i in range(6):
-        left = deadline - time.time()
-        if left <= 60:
-            print("grid-first budget exhausted", flush=True)
-            return
-        try:
-            rc = subprocess.call([sys.executable, script], timeout=left)
-        except subprocess.TimeoutExpired:
-            print("grid-first attempt hit the budget", flush=True)
-            return
-        if rc == 0:
-            return
-        if rc != 2:
-            print(f"grid-first non-poison rc={rc}; moving on", flush=True)
-            return
-        print(f"grid-first restart {i + 1}/6 after poisoning", flush=True)
-
-
 def main():
     import time
-    _grid_remainder_first()
     t0 = time.time()
     max_s = float(os.environ.get("VALIDATION_TWINS_MAX_S", 1e9))
     os.makedirs(os.path.dirname(OUT), exist_ok=True)

@@ -1,12 +1,12 @@
-"""spgrid — TPU-native sparse linear-algebra benchmark framework.
+"""spgrid — sparse linear-algebra benchmark framework in JAX.
 
 A from-scratch JAX / XLA / Pallas / pjit re-design of the capabilities of the
 SpMM-Research benchmark platform (reference: NTUA CSLab sparse-kernel research
 suite): deterministic artificial matrix generation driven by structural
 features, sparse storage formats as padded device arrays, SpMV / SpMM / SDDMM
-and the sparse-attention pipeline as MXU/VPU-tuned kernels, a benchmark harness
-with high-precision accuracy oracles and roofline accounting, and
-multi-chip/multi-host scaling over an ICI mesh.
+and the sparse-attention pipeline as XLA and Pallas (Triton) kernels for the
+GPU, a benchmark harness with high-precision accuracy oracles and roofline
+accounting, and multi-device/multi-host scaling over a device mesh.
 
 Layer map (mirrors SURVEY.md §7):
     spgrid.core      — config, deterministic RNG, timing protocol, error metrics,

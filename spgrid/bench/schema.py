@@ -5,9 +5,9 @@ real-matrix columns ``matrix_name,num_threads,input_columns,csr_m,csr_k,
 csr_nnz,time,gflops,csr_mem_footprint,m,n,nnz`` (spmv_bench.cpp:413-446),
 the artificial-matrix 23-field feature vector (spmv_bench.cpp:484-520), the
 pipeline per-stage columns (pipeline_code_bench/sddmm_bench.cpp:1010-1021),
-plus the TPU additions mandated by BASELINE.json: roofline speed-of-light
+plus the additions mandated by BASELINE.json: roofline speed-of-light
 and fraction, bytes moved, error-metric vector, and device/count fields
-replacing thread counts.
+replacing thread counts (``device`` names the card and its power limit).
 
 Protocol parity: a label row is emitted when a writer is created
 (spmv_bench.cpp:609-613 prints labels when argc==1), human logs go to
@@ -60,6 +60,7 @@ class BenchRow:
     lnQ_error: float = math.nan
     mlare: float = math.nan
     gmare: float = math.nan
+    max_rel_diff: float = math.nan   # the gated quantity
     errors_passed: int = 1
 
     # Structural features (artificial schema, spmv_bench.cpp:484-520)

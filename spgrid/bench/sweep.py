@@ -1,6 +1,6 @@
 """Sweep runner: kernels × matrices × configs with resume.
 
-The TPU re-design of the bash orchestration layer (``AMD/run.sh:346-398,
+The JAX re-design of the bash orchestration layer (``AMD/run.sh:346-398,
 566-685``): iterate the kernel list over a matrix source (parameter file,
 directory of .mtx/.smtx, or explicit list) and dense-width list, appending
 one CSV row per run.  Failure handling follows the reference's

@@ -8,7 +8,7 @@ from spgrid.core.metrics import (
     kahan_sum,
 )
 from spgrid.core.timing import TimedResult, time_kernel
-from spgrid.core.roofline import ChipSpec, TPU_V5E, TPU_V5P, roofline_time, roofline_fraction
+from spgrid.core.roofline import ChipSpec, H100_SXM, roofline_time, roofline_fraction
 
 __all__ = [
     "BenchConfig",
@@ -19,8 +19,7 @@ __all__ = [
     "TimedResult",
     "time_kernel",
     "ChipSpec",
-    "TPU_V5E",
-    "TPU_V5P",
+    "H100_SXM",
     "roofline_time",
     "roofline_fraction",
 ]

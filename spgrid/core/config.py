@@ -73,17 +73,17 @@ class BenchConfig:
     sparse_attention_type: str = "band_and_random"
     sddmm_sparsification_type: str = "none"
 
-    # Matmul precision: 'auto' = HIGHEST for f32/f64 (true-f32 MXU passes,
-    # matching the reference's f32 accuracy contract), 'default' for bf16.
-    # TPU's default f32 matmul is bf16-split (~1e-3 rel error) and would
-    # fail the reference gate.
+    # Matmul precision: 'auto' = HIGHEST for f32/f64 (true f32, matching the
+    # reference's f32 accuracy contract), 'default' for bf16.  The GPU's
+    # default f32 matmul runs in TF32 (~3 digits) and would fail the
+    # reference gate.
     matmul_precision: str = "auto"
 
     # Accuracy oracle placement: 'host' = f64 Kahan on host (the
     # definition; core/metrics.py), 'device' = double-float gold +
     # on-device metrics (core/device_oracle.py; ~10-scalar fetch instead
-    # of an (m, n) result download), 'auto' = device on accelerator
-    # backends when the result exceeds ~32MB.  The two agree to the
+    # of an (m, n) result download and an m x n host f64 pass), 'auto' =
+    # device on accelerator backends when the result exceeds ~32MB.  The two agree to the
     # oracle noise floor (~1e-13 relative; pinned by tests).
     oracle: str = "auto"
 

@@ -5,9 +5,9 @@ The reference measures CPU package energy via Linux powercap RAPL
 report J_estimated and W_avg) and GPU energy via NVEM.  On this stack:
 
 - Host-side RAPL is reimplemented below (measures the *host* CPU — relevant
-  for generation/packing phases, honest: it is NOT the TPU's power).
-- TPU device power is not exposed through public PJRT on this platform; the
-  schema keeps ``energy_j``/``w_avg`` columns and fills them when a meter is
+  for generation/packing phases, honest: it is NOT the GPU's power).
+- GPU power is not sampled yet (nvidia-smi power.draw is the planned
+  source, ROADMAP); the schema keeps ``energy_j``/``w_avg`` columns and fills them when a meter is
   available, mirroring the reference protocol (≥1 s window extension,
   cuSPARSEcsrmv_11_generate.cu:225-236).
 """

@@ -4,7 +4,7 @@ Reimplements the reference's ``CheckAccuracy`` contract
 (``spmv_code_bench/spmv_bench.cpp:121-206``) and error-metric definitions
 (``lib/array_metrics.c``; exact formulas cited per metric below).  The
 reference computes the gold result in ``__float128`` with Kahan compensated
-summation; on the TPU stack the device computes in bf16/f32, so a float64
+summation; here the device computes in bf16/f32, so a float64
 Kahan host oracle gives the same >2x-precision margin the reference had over
 its double kernels.
 """

@@ -3,7 +3,7 @@
 Reference counterpart (SURVEY §5 "Tracing / profiling"): per-phase wall
 timers (spmv_bench.cpp:666-768,989-999; time_it.h:46-57), per-thread
 compute-vs-barrier breakdown under PRINT_STATISTICS
-(spmv_kernel_csr.cpp:359-371), TSC timers, PAPI counters.  The TPU-native
+(spmv_kernel_csr.cpp:359-371), TSC timers, PAPI counters.  The device
 equivalents:
 
 - ``trace()``: jax.profiler trace context producing a TensorBoard/xprof
@@ -12,9 +12,9 @@ equivalents:
   harness phases show up on the host timeline.
 - ``KernelCost`` + ``cost_report()``: static FLOP/byte cost model per
   kernel invocation, checked against measured time to give the achieved
-  roofline fraction (the PAPI-counters analogue — on TPU the interesting
-  "counters" are bytes streamed and MXU FLOPs, which are statically known
-  for these kernels).
+  roofline fraction (the PAPI-counters analogue — on the device the
+  interesting "counters" are bytes streamed and matmul FLOPs, which are
+  statically known for these kernels).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from spgrid.core.roofline import (
 def trace(logdir: str, create_perfetto_link: bool = False):
     """Profile a region into ``logdir`` (view with TensorBoard/xprof).
 
-    Wraps jax.profiler.trace; safe on CPU and TPU backends."""
+    Wraps jax.profiler.trace; safe on CPU and GPU backends."""
     with jax.profiler.trace(logdir,
                             create_perfetto_link=create_perfetto_link):
         yield

@@ -15,6 +15,7 @@ FLOP models (BASELINE.md "Measurement protocol"):
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import jax
 
@@ -22,48 +23,47 @@ import jax
 @dataclasses.dataclass(frozen=True)
 class ChipSpec:
     name: str
-    hbm_gbytes_per_s: float       # HBM bandwidth
-    peak_bf16_tflops: float       # MXU peak, bf16 inputs / f32 accum
-    peak_f32_tflops: float        # MXU/VPU f32 peak
-    vmem_mbytes: float = 128.0
-    hbm_gbytes: float = 16.0
+    hbm_gbytes_per_s: float       # device-memory bandwidth
+    peak_bf16_tflops: float       # tensor cores, bf16 inputs / f32 accum
+    peak_f32_tflops: float        # true f32 (the f32 rows run at HIGHEST)
+    hbm_gbytes: float
+    source: str = ""
 
 
-# Public spec-sheet numbers.
-TPU_V5E = ChipSpec(
-    name="tpu_v5e", hbm_gbytes_per_s=819.0, peak_bf16_tflops=197.0,
-    peak_f32_tflops=98.5, vmem_mbytes=128.0, hbm_gbytes=16.0,
+# Published peaks, keyed by jax's device_kind.  A kind that is not here is
+# an error, not a default: a roofline share against a guessed peak would
+# be a made-up number.
+H100_SXM = ChipSpec(
+    name="NVIDIA H100 80GB HBM3", hbm_gbytes_per_s=3350.0,
+    peak_bf16_tflops=989.0, peak_f32_tflops=67.0, hbm_gbytes=80.0,
+    source="NVIDIA H100 SXM data sheet (dense rates, 700 W); TF32 is "
+           "495 TFLOP/s but f32 rows run at HIGHEST, outside TF32",
 )
-TPU_V5P = ChipSpec(
-    name="tpu_v5p", hbm_gbytes_per_s=2765.0, peak_bf16_tflops=459.0,
-    peak_f32_tflops=229.5, vmem_mbytes=128.0, hbm_gbytes=95.0,
-)
-TPU_V4 = ChipSpec(
-    name="tpu_v4", hbm_gbytes_per_s=1228.0, peak_bf16_tflops=275.0,
-    peak_f32_tflops=137.5, vmem_mbytes=128.0, hbm_gbytes=32.0,
-)
+# The CPU backend has no published peak: its rows carry NaN roofline
+# columns.
 CPU_HOST = ChipSpec(
-    name="cpu_host", hbm_gbytes_per_s=50.0, peak_bf16_tflops=1.0,
-    peak_f32_tflops=1.0, vmem_mbytes=32.0, hbm_gbytes=64.0,
+    name="cpu", hbm_gbytes_per_s=math.nan, peak_bf16_tflops=math.nan,
+    peak_f32_tflops=math.nan, hbm_gbytes=math.nan,
 )
 
-_CHIPS = {c.name: c for c in (TPU_V5E, TPU_V5P, TPU_V4, CPU_HOST)}
+_CHIPS = {c.name: c for c in (H100_SXM,)}
+
+
+def chip_for_kind(platform: str, kind: str) -> ChipSpec:
+    if platform == "cpu":
+        return CPU_HOST
+    spec = _CHIPS.get(kind)
+    if spec is None:
+        raise ValueError(
+            f"no published peaks for device kind {kind!r} on {platform!r}; "
+            f"add a ChipSpec with its source to spgrid/core/roofline.py")
+    return spec
 
 
 def detect_chip() -> ChipSpec:
-    """Best-effort detection of the local accelerator."""
-    try:
-        dev = jax.devices()[0]
-        kind = getattr(dev, "device_kind", "").lower()
-    except Exception:
-        kind = ""
-    if "v5 lite" in kind or "v5e" in kind or "v5lite" in kind or "lite" in kind:
-        return TPU_V5E
-    if "v5p" in kind or "v5" in kind:
-        return TPU_V5P
-    if "v4" in kind:
-        return TPU_V4
-    return CPU_HOST
+    """The ChipSpec of the local device; raises on an unknown accelerator."""
+    dev = jax.devices()[0]
+    return chip_for_kind(dev.platform, dev.device_kind)
 
 
 def roofline_time(
@@ -72,8 +72,11 @@ def roofline_time(
     chip: ChipSpec,
     dtype: str = "float32",
 ) -> float:
-    """Speed-of-light time (s): max of compute-bound and memory-bound time."""
+    """Speed-of-light time (s): max of compute-bound and memory-bound time.
+    NaN on a chip without published peaks."""
     peak = chip.peak_bf16_tflops if dtype == "bfloat16" else chip.peak_f32_tflops
+    if math.isnan(peak) or math.isnan(chip.hbm_gbytes_per_s):
+        return math.nan
     t_compute = flops / (peak * 1e12) if flops else 0.0
     t_memory = bytes_accessed / (chip.hbm_gbytes_per_s * 1e9) if bytes_accessed else 0.0
     return max(t_compute, t_memory)

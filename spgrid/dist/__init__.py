@@ -1,11 +1,12 @@
-"""Distribution layer: mesh setup + row-partitioned sparse ops over ICI/DCN.
+"""Distribution layer: mesh setup + row-partitioned sparse ops over cards.
 
 The one genuinely new capability vs the reference (SURVEY §2.8/§5: the
 reference is single-node shared-memory; multi-node = independent Slurm
-jobs).  Here: ``jax.sharding.Mesh`` over chips, nnz-balanced row
-partitioning of the sparse operand (the TPU analogue of
+jobs).  Here: ``jax.sharding.Mesh`` over cards, nnz-balanced row
+partitioning of the sparse operand (the device analogue of
 ``loop_partitioner_balance_prefix_sums``), and ``shard_map`` kernels whose
-dense-operand exchange rides XLA collectives on ICI.
+dense-operand exchange rides XLA collectives (NCCL over NVLink on a GPU
+host).
 """
 
 from spgrid.dist.mesh import make_mesh, device_mesh_shape, \

@@ -7,7 +7,7 @@ Sharding layout (the "training step" shape of this framework):
     analogue — each device owns a contiguous row range of the sequence).
   - K/Q/V = W @ X: computed locally, rows live on their model shard.
   - SDDMM S = mask ⊙ (Q Kᵀ): Q rows are local; K is all-gathered over the
-    model axis (ICI collective — the long-context halo of SURVEY §5).
+    model axis (the long-context halo of SURVEY §5).
   - Y = S @ V: V all-gathered likewise; output rows stay model-sharded.
 """
 
@@ -17,14 +17,13 @@ import dataclasses
 from typing import Optional
 
 import jax
-import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from spgrid.formats.csr import CSRMatrix
 from spgrid.dist.partition import ShardedBSR, partition_bsr
 from spgrid.dist.spmm import _local_spmm
-from spgrid.ops.pallas.sddmm import _bsr_sddmm
+from spgrid.ops import xla as xops
 
 
 @jax.tree_util.register_pytree_node_class
@@ -59,21 +58,6 @@ class DistSparseAttention:
                       + 2 * self.mask.nnz)
 
 
-def _sddmm_local_xla(rows, cols, mask_blocks, q, k, mb_local):
-    """Local-shard SDDMM: q rows local (block rows), k rows global
-    (block cols). Batched einsum analogue of ops.attention._sddmm_bsr_xla."""
-    nb, bm, bk = mask_blocks.shape
-    mbq = mb_local + 1
-    mbk = -(-k.shape[0] // bk)
-    qp = jnp.pad(q, ((0, mbq * bm - q.shape[0]), (0, 0))).reshape(mbq, bm, -1)
-    kp = jnp.pad(k, ((0, mbk * bk - k.shape[0]), (0, 0))).reshape(mbk, bk, -1)
-    qg = jnp.take(qp, rows, axis=0, fill_value=0)
-    kg = jnp.take(kp, cols, axis=0, fill_value=0)
-    dots = jnp.einsum("bid,bjd->bij", qg, kg,
-                      preferred_element_type=jnp.float32)
-    return dots * mask_blocks.astype(jnp.float32)
-
-
 def make_dist_pipeline_step(
     mesh: Mesh,
     attn: DistSparseAttention,
@@ -81,11 +65,8 @@ def make_dist_pipeline_step(
     model_axis: str = "model",
     data_axis: Optional[str] = "data",
     use_pallas: bool = False,
-    interpret: Optional[bool] = None,
 ):
     """Jitted distributed pipeline step: x (k, n) -> y (m_padded, n)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     w_mb = attn.wk.rows_per_shard // attn.wk.bm
     w_m = attn.wk.rows_per_shard
     mk_mb = attn.mask.rows_per_shard // attn.mask.bm
@@ -101,29 +82,23 @@ def make_dist_pipeline_step(
         wvr, wvc, wvb = wvr[0], wvc[0], wvb[0]
         mr, mc, mb_blocks = mr[0], mc[0], mb_[0]
 
-        k_loc = _local_spmm(wkr, wkc, wkb, x, w_mb, w_m, use_pallas, interpret)
-        q_loc = _local_spmm(wqr, wqc, wqb, x, w_mb, w_m, use_pallas, interpret)
-        v_loc = _local_spmm(wvr, wvc, wvb, x, w_mb, w_m, use_pallas, interpret)
+        k_loc = _local_spmm(wkr, wkc, wkb, x, w_mb, w_m, use_pallas)
+        q_loc = _local_spmm(wqr, wqc, wqb, x, w_mb, w_m, use_pallas)
+        v_loc = _local_spmm(wvr, wvc, wvb, x, w_mb, w_m, use_pallas)
 
-        # ICI halo: sequence rows of K and V gathered across the model axis.
+        # Halo: sequence rows of K and V gathered across the model axis.
         k_full = jax.lax.all_gather(k_loc, model_axis, axis=0, tiled=True)
         v_full = jax.lax.all_gather(v_loc, model_axis, axis=0, tiled=True)
 
-        if use_pallas:
-            d_tile = min(256, -(-q_loc.shape[1] // 128) * 128)
-            s_blocks = _bsr_sddmm(mr, mc, mb_blocks, q_loc, k_full,
-                                  d_tile=d_tile, interpret=interpret)
-        else:
-            s_blocks = _sddmm_local_xla(mr, mc, mb_blocks, q_loc, k_full,
-                                        mk_mb)
+        s_blocks = xops._sddmm_bsr(mr, mc, mb_blocks, q_loc, k_full)
         if data_axis is not None:
             # The SDDMM contraction dim is the dense width n, which is
             # data-sharded: each data shard holds a partial dot — reduce
-            # over ICI (row-parallel contraction, Megatron-style).
+            # across the data axis (row-parallel contraction, Megatron-style).
             s_blocks = jax.lax.psum(s_blocks, data_axis)
         s_blocks = s_blocks.astype(x.dtype)
         y_loc = _local_spmm(mr, mc, s_blocks, v_full, mk_mb, mk_m,
-                            use_pallas, interpret)
+                            use_pallas)
         return y_loc
 
     fn = shard_map(

@@ -1,9 +1,10 @@
 """Mesh construction helpers.
 
 The reference pins OpenMP threads to cores (config.sh:16-31 pinning calc);
-the TPU analogue is laying a named mesh over the chip topology so
-collectives ride ICI links.  Multi-host entry: ``jax.distributed`` init per
-host, mesh spanning all processes (DCN between hosts)."""
+the device analogue is a named mesh over the cards.  The four cards of one
+host reach each other all to all over NVLink, so the mesh follows the
+algorithm alone.  Multi-host entry: ``jax.distributed`` init per host,
+mesh spanning all processes."""
 
 from __future__ import annotations
 
@@ -35,21 +36,18 @@ def _largest_factor_le(n: int, limit: int) -> int:
 
 
 def available_devices(n_devices: int):
-    """Devices for an n-device mesh, falling back to the CPU backend.
+    """The first n_devices devices of the default backend.
 
-    On single-chip dev boxes the default backend exposes one device even
-    when XLA_FLAGS=--xla_force_host_platform_device_count provides virtual
-    CPU devices; sharding code paths validate there."""
+    Virtual CPU devices are used only where the caller asked for them
+    (JAX_PLATFORMS=cpu with --xla_force_host_platform_device_count);
+    fewer devices than requested is an error, never a quiet move to
+    another backend."""
     devices = jax.devices()
     if len(devices) < n_devices:
-        try:
-            cpu = jax.devices("cpu")
-        except RuntimeError:
-            cpu = []
-        # only downgrade to the CPU backend if it actually has more devices
-        # (virtual-device dev boxes), never away from a real multi-chip pool
-        if len(cpu) > len(devices):
-            devices = cpu
+        raise RuntimeError(
+            f"need {n_devices} devices, have {len(devices)} "
+            f"{devices[0].platform} device(s); for a CPU rehearsal set "
+            f"XLA_FLAGS=--xla_force_host_platform_device_count={n_devices}")
     return devices[:n_devices]
 
 
@@ -71,10 +69,10 @@ def make_mesh(
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> None:
-    """Multi-host bring-up (one process per host over DCN).
+    """Multi-host bring-up (one process per host).
 
-    No-op when single-process; mirrors jax.distributed.initialize()'s
-    auto-detection on TPU pods."""
+    No-op when single-process.  Nothing tells JAX of a cluster, so the
+    coordinator address, process count and id are given explicitly."""
     if num_processes is None and coordinator is None:
         return
     jax.distributed.initialize(coordinator_address=coordinator,
@@ -84,7 +82,7 @@ def init_distributed(coordinator: Optional[str] = None,
 
 def device_topology() -> dict:
     """Device topology snapshot (ref: lib/topology.h core/NUMA discovery —
-    here chips, hosts, and ICI coordinates).
+    here cards, hosts, and device coordinates).
 
     Returns {platform, num_devices, num_hosts, devices: [{id, process,
     kind, coords, core_on_chip}]}."""

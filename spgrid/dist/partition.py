@@ -123,7 +123,7 @@ def partition_bsr_halo(csr: CSRMatrix, num_shards: int, bm: int = 8,
     global (halo_left, halo_right) are the max over shards — for banded
     matrices both are small (often 1), so the dense-operand exchange is
     O(halo) neighbor ppermutes instead of an O(S) all_gather
-    (BASELINE.json: halo segments over ICI; the bandwidth feature of the
+    (BASELINE.json: halo segments between neighbours; the bandwidth feature of the
     matrix literally predicts halo size, SURVEY §7 hard part 5).
 
     Block cols are rebased to the shard's halo window:

@@ -4,7 +4,7 @@ BASELINE.json mandates nnz/s scaling efficiency measured at 1 chip, 1 host,
 and N>=2 hosts with >=80% weak-scaling at 2+ hosts.  This harness runs the
 row-partitioned SpMM over increasing mesh sizes and reports efficiency
 relative to the single-device run; on a development box it runs on virtual
-CPU devices, on a pod it spans real chips/hosts (same code path —
+CPU devices, on a GPU host it spans its cards (same code path —
 jax.distributed + Mesh over all processes).
 """
 
@@ -35,7 +35,8 @@ class ScalingPoint:
     gflops: float
     efficiency: float      # vs the 1-device point (weak: per-device rate)
     comm_bytes: int = 0    # analytic X bytes received per device per step
-    device_kind: str = ""  # 'tpu' | 'cpu_virtual (correctness-only)'
+    device_kind: str = ""  # jax device_kind; CPU devices are marked
+                           # 'cpu_virtual (correctness-only)'
 
 
 def scaling_study(
@@ -85,7 +86,7 @@ def scaling_study(
         # exchange moves only neighbor shards (O(halo)); the all-gather
         # alternative moves (d-1)/d of X.  Time on virtual CPU devices
         # cannot prove the advantage (one physical core under the mesh),
-        # so the byte accounting carries the claim until a pod run.
+        # so there the byte accounting carries the claim.
         if d == 1 or x_partition == "replicated":
             comm = 0
         elif x_partition == "halo":
@@ -94,9 +95,9 @@ def scaling_study(
             comm = halo_shards * (csr.k // d) * n * itemsize
         else:
             comm = (d - 1) * (csr.k // d) * n * itemsize
-        kind = devices[0].platform
-        if kind != "tpu":
-            kind = f"{kind}_virtual (correctness-only)"
+        kind = devices[0].device_kind
+        if devices[0].platform == "cpu":
+            kind = "cpu_virtual (correctness-only)"
         if mode == "weak":
             rate_per_dev = nnz_rate / d
             if base_rate is None:

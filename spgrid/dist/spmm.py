@@ -2,13 +2,13 @@
 
 Y = A @ X with A's block rows sharded over the ``model`` mesh axis (each
 device owns an equal row range, blocks nnz-padded to a common static shape)
-and X either replicated or row-sharded with an ICI all-gather as the
+and X either replicated or row-sharded with an all-gather as the
 dense-operand halo exchange.  X's columns may additionally be sharded over
 the ``data`` axis — that direction needs no communication at all.
 
-This is the TPU answer to the reference's OpenMP row partitioning
-(spmv_kernel_csr.cpp:352-373 + parallel_util.h) scaled past one host
-(BASELINE.json: >=80% weak-scaling at 2+ hosts).
+This is the device-mesh answer to the reference's OpenMP row
+partitioning (spmv_kernel_csr.cpp:352-373 + parallel_util.h) scaled past
+one card (BASELINE.json: >=80% weak-scaling at 2+ hosts).
 """
 
 from __future__ import annotations
@@ -23,15 +23,16 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from spgrid.dist.partition import ShardedBSR
 from spgrid.ops import xla as xops
-from spgrid.ops.pallas.bsr_spmm import _bsr_spmm
+from spgrid.ops.pallas.bsr_spmm import bsr_spmm_starts
 
 
-def _local_spmm(rows, cols, blocks, x, mb_local, m_local, use_pallas,
-                interpret):
+def _local_spmm(rows, cols, blocks, x, mb_local, m_local, use_pallas):
     if use_pallas:
-        n_tile = min(256, -(-x.shape[1] // 128) * 128)
-        return _bsr_spmm(rows, cols, blocks, x, mb=mb_local, m=m_local,
-                         n_tile=n_tile, interpret=interpret)
+        # block rows are sorted, padding blocks (row = mb_local) last
+        starts = jnp.searchsorted(rows, jnp.arange(mb_local + 1,
+                                                   dtype=rows.dtype))
+        return bsr_spmm_starts(starts.astype(jnp.int32), cols, blocks, x,
+                               m=m_local)
     return xops._spmm_bsr(rows, cols, blocks, x, mb_local, m_local)
 
 
@@ -43,15 +44,12 @@ def make_dist_spmm(
     data_axis: Optional[str] = "data",
     x_partition: str = "replicated",   # 'replicated' | 'row_sharded' | 'halo'
     use_pallas: bool = False,
-    interpret: Optional[bool] = None,
 ):
     """Build a jitted distributed SpMM closure over ``sharded``.
 
     Returns ``f(x) -> y`` with x (k, n) and y (S*rows_per_shard, n); y's rows
     are sharded over ``model_axis`` and columns over ``data_axis``.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     mb_local = sharded.rows_per_shard // sharded.bm
     m_local = sharded.rows_per_shard
     if x_partition == "halo" and not sharded.kb_per_shard:
@@ -68,7 +66,7 @@ def make_dist_spmm(
         rows, cols, blocks = rows[0], cols[0], blocks[0]
         if x_partition == "halo":
             # Bandwidth-aware halo exchange: each shard fetches only the
-            # halo_left/right neighbor x shards via ICI ppermute rings —
+            # halo_left/right neighbor x shards via ppermute rings —
             # O(halo) neighbor hops instead of the O(S) all_gather; the
             # matrix's bandwidth feature bounds the halo width.  Edge
             # shards receive wrapped segments their (rebased) block cols
@@ -86,7 +84,7 @@ def make_dist_spmm(
             # General-span fallback: gather the whole dense operand.
             x = jax.lax.all_gather(x, model_axis, axis=0, tiled=True)
         return _local_spmm(rows, cols, blocks, x, mb_local, m_local,
-                           use_pallas, interpret)
+                           use_pallas)
 
     fn = shard_map(
         local_fn,

@@ -1,4 +1,4 @@
-"""Sparse storage formats as host containers + TPU-friendly padded layouts."""
+"""Sparse storage formats as host containers + static-shape padded layouts."""
 
 from spgrid.formats.csr import (
     CSRMatrix,

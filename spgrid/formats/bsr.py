@@ -1,9 +1,9 @@
-"""BSR / block-CSR: dense blocks — the MXU-native sparse layout.
+"""BSR / block-CSR: dense blocks — the matmul-unit sparse layout.
 
 Reference exposes MKL BSR with block sizes 2..64
-(``AMD/spmv_code_bench/Makefile_in`` mkl_bsr targets).  On TPU, dense blocks
-are the *only* way sparse flops reach the MXU systolic array: each stored
-(bm x bk) block multiplies a (bk x n) dense slab at full matmul throughput.
+(``AMD/spmv_code_bench/Makefile_in`` mkl_bsr targets).  Dense blocks are
+how sparse flops reach the matrix units: each stored (bm x bk) block
+multiplies a (bk x n) dense slab at matmul throughput.
 The block grid is stored CSR-style over block rows.
 """
 

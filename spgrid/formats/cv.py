@@ -3,10 +3,10 @@
 Reference counterpart: the bit/byte-stream substrate for compressed-value
 kernels (``lib/bitstream.c:1-262``, ``lib/bit_ops.h`` — FPC/ZFP-style value
 compression that trades decode FLOPs for memory traffic on bandwidth-bound
-SpMV).  The TPU-idiomatic equivalent is datatype narrowing the hardware
-decodes for free: values stored as bf16, or as int8 with a per-row
-symmetric absmax scale (dequantized on the VPU inside the kernel).  Memory
-footprint drops 2x / ~4x, which is exactly the lever on an HBM-bound kernel.
+SpMV).  The device equivalent is datatype narrowing the hardware decodes
+for free: values stored as bf16, or as int8 with a per-row symmetric
+absmax scale (dequantized inside the kernel).  Memory footprint drops 2x /
+~4x, which is exactly the lever on a bandwidth-bound kernel.
 """
 
 from __future__ import annotations

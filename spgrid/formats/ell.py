@@ -1,7 +1,7 @@
-"""ELL format: rows padded to equal length — the natural TPU layout.
+"""ELL format: rows padded to equal length — a static-shape layout.
 
-Reference: ``ARM/spmv_code_bench/spmv_kernel_ell.cpp:111-119``.  On TPU the
-fixed row width gives static shapes; padding slots use column 0 with value 0
+Reference: ``ARM/spmv_code_bench/spmv_kernel_ell.cpp:111-119``.  The fixed
+row width gives static shapes; padding slots use column 0 with value 0
 so they contribute nothing to gathers/reductions.
 """
 

@@ -12,7 +12,7 @@ OpenFOAM owner/neighbour face lists
     y[owner[f]] += upper[f] * x[neigh[f]]     for each face f
     y[neigh[f]] += lower[f] * x[owner[f]]
 
-which on TPU becomes two gathers + two segment-sums (spgrid.ops.xla.spmv_ldu).
+which on the device becomes two gathers + two segment-sums (spgrid.ops.xla.spmv_ldu).
 """
 
 from __future__ import annotations

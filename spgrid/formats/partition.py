@@ -1,8 +1,8 @@
 """Work partitioners: equal-iteration, nnz-balanced, mixed-cost, merge-path.
 
-Reimplements ``lib/parallel_util.h`` for the TPU setting.  The reference used
+Reimplements ``lib/parallel_util.h`` for a device mesh.  The reference used
 these to assign row ranges to OpenMP threads; here the same boundaries define
-Pallas grid blocks and pjit shard boundaries.  The nnz-prefix-sum balancer
+kernel blocks and shard boundaries.  The nnz-prefix-sum balancer
 (``loop_partitioner_balance_prefix_sums``, parallel_util.h:141-165) is a
 binary search on the rowptr prefix sums — exactly ``np.searchsorted``.
 """

@@ -2,9 +2,9 @@
 
 Reference counterparts: ``validation_matrices/matrix_features/mat_reorder``
 (RCM etc.) and the row-shuffling effect study
-(``results_visualization/epyc5_shuffling.ipynb``).  On TPU, reordering is a
+(``results_visualization/epyc5_shuffling.ipynb``).  Reordering is a
 first-class performance lever: RCM shrinks bandwidth, which directly raises
-WCOO window locality and SELL slice density.
+gather-window locality and SELL slice density.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """SELL-C-sigma: sliced ELL with sigma-window row sorting.
 
 Reference integration: ``benchmark_code/CPU/ARM/spmv_code_sell-C-s`` (ESSEX/
-GHOST ``SELL-32-1``).  SELL-C-sigma is *already* the TPU-friendly layout the
+GHOST ``SELL-32-1``).  SELL-C-sigma is *already* the device-friendly layout the
 survey calls for (SURVEY §7 step 2): rows are sorted by degree inside windows
 of ``sigma`` rows, grouped into slices of ``C`` rows (C = sublane count), and
 each slice padded to its own width — wasting far less than plain ELL on

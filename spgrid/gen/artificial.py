@@ -52,16 +52,20 @@ import numpy as np
 from spgrid.formats.csr import CSRMatrix, IDX_DTYPE
 
 # On-disk cache for generated matrices.  Generation is deterministic per
-# parameter tuple but takes minutes at m ~ 10^5-10^6 on a 1-CPU host, and
-# the study queue re-pays it on every resume (and across studies sharing
-# a matrix).  Cache key = the full parameter tuple EXCLUDING `name` (the
-# same structure is reused under different study tags).  Opt out with
-# SPGRID_GEN_CACHE=0; override the directory by setting it to a path.
+# parameter tuple but takes minutes at m ~ 10^5-10^6, and a study re-pays
+# it on every resume (and across studies sharing a matrix).  Cache key =
+# the full parameter tuple EXCLUDING `name` (the same structure is reused
+# under different study tags).  The cache lives in the checkout
+# (.gen_cache/, ignored by git); opt out with SPGRID_GEN_CACHE=0 or set it
+# to another directory.
 _CACHE_MIN_NNZ = 1 << 19        # don't bother below ~0.5M nnz
+_DEFAULT_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".gen_cache")
 
 
 def _cache_dir():
-    v = os.environ.get("SPGRID_GEN_CACHE", "/tmp/spgrid_gen_cache")
+    v = os.environ.get("SPGRID_GEN_CACHE", _DEFAULT_CACHE)
     return None if v in ("0", "") else v
 
 

@@ -1,6 +1,6 @@
 // spgrid native host library: parallel matrix parsing, COO->CSR, features.
 //
-// TPU-native rebuild of the reference's compute-heavy host components:
+// Native rebuild of the reference's compute-heavy host components:
 //   - .mtx reader with symmetry expansion & field types
 //     (ref: lib/storage_formats/matrix_market/matrix_market.c:249-342)
 //   - .smtx (DLMC CSR text) reader

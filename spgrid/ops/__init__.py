@@ -1,4 +1,4 @@
-"""Sparse kernels: XLA baselines + Pallas TPU kernels + pipeline + dispatch."""
+"""Sparse kernels: XLA baselines + Pallas GPU kernels + pipeline + dispatch."""
 
 from spgrid.ops.layouts import (
     DeviceCOO, DeviceELL, DeviceBSR, DeviceSELL, DeviceCSC, DeviceLDU,
@@ -19,17 +19,12 @@ from spgrid.ops.xla import (
     spmm_ldu,
     spmv_cv,
     spmm_cv,
+    sddmm_bsr,
     sddmm_coo,
     sddmm_dense,
 )
 from spgrid.ops.pallas.bsr_spmm import bsr_spmm
-from spgrid.ops.pallas.bsr_spmm_cstat import DeviceBSRCol, bsr_spmm_cstat
-from spgrid.ops.pallas.panel_spmm import DevicePanels, panel_spmm
-from spgrid.ops.pallas.sddmm import bsr_sddmm
-from spgrid.ops.pallas.wcoo_spmm import DeviceWCOO, wcoo_spmm
-from spgrid.ops.pallas.wcoo_spmm_aligned import DeviceWCOOBands, wcoo_spmm_aligned
-from spgrid.ops.pallas.wcoo_spmv import DeviceWCOOAligned, wcoo_spmv
-from spgrid.ops.pallas.wrow_spmv import DeviceWROW, wrow_spmv
+from spgrid.ops.panels import DevicePanels, panel_spmm
 from spgrid.ops.attention import (
     SparseAttention,
     attention_pipeline,
@@ -44,11 +39,8 @@ __all__ = [
     "DeviceLDU", "DeviceCV",
     "gemm", "spmm_dense", "spmv_coo", "spmm_coo", "spmv_ell", "spmm_ell",
     "spmm_bsr", "spmv_sell", "spmv_csc", "spmm_csc", "spmv_ldu", "spmm_ldu",
-    "spmv_cv", "spmm_cv", "sddmm_coo", "sddmm_dense",
-    "bsr_spmm", "DeviceBSRCol", "bsr_spmm_cstat", "DevicePanels",
-    "panel_spmm", "bsr_sddmm", "DeviceWCOO", "wcoo_spmm",
-    "DeviceWCOOBands", "wcoo_spmm_aligned",
-    "DeviceWCOOAligned", "wcoo_spmv", "DeviceWROW", "wrow_spmv",
+    "spmv_cv", "spmm_cv", "sddmm_bsr", "sddmm_coo", "sddmm_dense",
+    "bsr_spmm", "DevicePanels", "panel_spmm",
     "SparseAttention", "attention_pipeline", "make_pipeline_step",
     "gold_pipeline", "blocksparse_softmax",
     "select_format", "autotune_spmm", "build", "spmm_fn",

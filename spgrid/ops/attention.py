@@ -18,8 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +26,6 @@ from spgrid.formats.csr import CSRMatrix
 from spgrid.ops.layouts import DeviceBSR
 from spgrid.ops import xla as xops
 from spgrid.ops.pallas.bsr_spmm import bsr_spmm
-from spgrid.ops.pallas.sddmm import bsr_sddmm
 
 
 @jax.tree_util.register_pytree_node_class
@@ -103,7 +100,6 @@ def attention_pipeline(
     *,
     use_pallas: bool = True,
     softmax: bool = False,
-    interpret: Optional[bool] = None,
 ):
     """Run the 5-stage pipeline; returns (y, stages dict).
 
@@ -112,15 +108,11 @@ def attention_pipeline(
       S = mask ⊙ (Q @ K^T)                              (SDDMM)
       Y = S @ V                                         (final SpMM)
     """
-    spmm = (lambda b, z: bsr_spmm(b, z, interpret=interpret)) if use_pallas \
-        else xops.spmm_bsr
+    spmm = bsr_spmm if use_pallas else xops.spmm_bsr
     k = spmm(attn.wk, x)
     q = spmm(attn.wq, x)
     v = spmm(attn.wv, x)
-    if use_pallas:
-        s_blocks = bsr_sddmm(attn.mask, q, k, interpret=interpret)
-    else:
-        s_blocks = _sddmm_bsr_xla(attn.mask, q, k)
+    s_blocks = xops.sddmm_bsr(attn.mask, q, k)
     if softmax:
         s_blocks = blocksparse_softmax(attn.mask, s_blocks)
     s = _with_blocks(attn.mask, s_blocks.astype(x.dtype))
@@ -128,29 +120,14 @@ def attention_pipeline(
     return y, {"K": k, "Q": q, "V": v, "S": s_blocks, "Y": y}
 
 
-def _sddmm_bsr_xla(mask: DeviceBSR, q: jax.Array, k: jax.Array) -> jax.Array:
-    """XLA baseline SDDMM on BSR mask blocks (batched dot_general)."""
-    nb, bm, bk = mask.blocks.shape
-    mbq = -(-q.shape[0] // bm) + 1
-    mbk = -(-k.shape[0] // bk)
-    qp = jnp.pad(q, ((0, mbq * bm - q.shape[0]), (0, 0))).reshape(mbq, bm, -1)
-    kp = jnp.pad(k, ((0, mbk * bk - k.shape[0]), (0, 0))).reshape(mbk, bk, -1)
-    qg = jnp.take(qp, mask.block_rows, axis=0, fill_value=0)   # (nb, bm, d)
-    kg = jnp.take(kp, mask.block_cols, axis=0, fill_value=0)   # (nb, bk, d)
-    dots = jnp.einsum("bid,bjd->bij", qg, kg,
-                      preferred_element_type=jnp.float32)
-    return dots * mask.blocks.astype(jnp.float32)
-
-
 def make_pipeline_step(attn: SparseAttention, *, use_pallas: bool = True,
-                       softmax: bool = False,
-                       interpret: Optional[bool] = None):
+                       softmax: bool = False):
     """A single jitted X -> Y pipeline callable (the headline benchmark)."""
 
     @jax.jit
     def step(x):
         y, _ = attention_pipeline(attn, x, use_pallas=use_pallas,
-                                  softmax=softmax, interpret=interpret)
+                                  softmax=softmax)
         return y
 
     return step

@@ -1,18 +1,19 @@
 """Analytic per-kernel SpMM time models + cost-based format selection.
 
 The reference answers "which kernel wins for which structure" empirically
-(the whole synthetic-dataset methodology, run.sh sweeps); round 1's
-`select_format` encoded the answer as density/bandwidth thresholds.  This
-module replaces thresholds with closed-form time estimates built from
-measured v5e constants, because thresholds miss regime crossovers that
-depend on more than one feature — the worst round-1 miss: a small-m
-100-nnz/row matrix costs the MXU almost nothing to densify
-(t_dense ∝ m*k*n/33T), so `dense` beats every gather kernel up to
-m ≈ 160*avg_nnz even at density << 5% (VERDICT r1: auto picked
-wcoo_pallas at 63 GFLOPS where dense delivers ~420).
+(the whole synthetic-dataset methodology, run.sh sweeps).  Threshold rules
+on density/bandwidth miss regime crossovers that depend on more than one
+feature — a small-m 100-nnz/row matrix costs almost nothing to densify
+(t_dense ∝ m*k*n/rate), so `dense` beats every gather kernel up to
+m ≈ rate-bound at densities far below any fixed threshold.  This module
+ranks kernels by closed-form time estimates built from measured machine
+constants instead.
 
-Constants are module-level and refittable from sweep CSVs
-(`fit_constants`).  Estimates are coarse (±2x) — they only need to rank.
+The constants are one card's table (``C``), measured by
+``chip_smoke.py --calibrate``; estimates are coarse (±2x) — they only
+need to rank.  Per-format corrections are refittable from sweep CSVs
+(`fit_constants`).  Every function takes the table it prices with, so
+routing tests pass a table of their own.
 
 Reference counterparts: the per-kernel GFLOPS prediction models in the
 paper analysis (results_visualization notebooks) and the format-selection
@@ -28,53 +29,46 @@ from spgrid.features.structural import MatrixFeatures
 
 
 @dataclasses.dataclass
-class V5eConstants:
-    """Measured machine constants (scripts/exp_gather.py, round-1 log)."""
+class ChipConstants:
+    """Measured machine constants of one card."""
 
-    eff_bw: float = 680e9          # achieved streaming bytes/s (add1 test)
-    mxu_f32: float = 33e12         # f32-HIGHEST matmul flops/s (6-pass)
-    mxu_bf16: float = 198e12       # bf16 matmul flops/s
-    gather_fast: float = 200e6     # rows/s, gather source < ~64MB (windowed)
-    gather_slow: float = 55e6      # rows/s, gather source above the cliff
-    combine_bw: float = 280e9      # multi-stream elementwise+reduce bytes/s
-    grid_step: float = 300e-9      # Pallas per-grid-step overhead
-    dispatch: float = 3e-6         # fixed per-op overheads inside a call
-                                   # (r5: the r1 value 25us was a per-call
-                                   # timing relic; the chained protocol
-                                   # measures whole m=512 dense rows at
-                                   # 1.9-9us, so per-iter overhead <= ~3us)
-    wcoo_slot: float = 1.7e-9      # aligned-slot stream cost per slot
-    wcoo_nnz: float = 20e-9        # per-real-nnz VPU shuffle+FMA cost
-    scoo_scatter: float = 12e-9    # in-place sorted scatter-add cost/entry
-                                   # (r4: scoo measured on 7 grid rows,
-                                   # model medAPE 14% with the fitted
-                                   # fudge; stays out of AUTO because it
-                                   # LOSES its class head-to-heads)
+    eff_bw: float          # streaming copy bytes/s (read + write)
+    matmul_f32: float      # f32 matmul flops/s at HIGHEST (no TF32)
+    matmul_bf16: float     # bf16 matmul flops/s, f32 accumulation
+    gather_fast: float     # X-row gathers/s (n = 512 f32 rows), source
+                           # under the gather cliff
+    gather_slow: float     # X-row gathers/s, source far above the cliff
+    gather_cliff: float    # source bytes where the gather rate falls
+                           # (the card's last-level cache)
+    combine_bw: float      # multi-stream elementwise+reduce bytes/s
+    scoo_scatter: float    # seconds per (row of n = 512) scatter-add entry
+    dispatch: float        # fixed per-op seconds inside a jitted call
+    source: str = ""
     # per-format multiplicative corrections, refit from sweep CSVs
-    # (r5: fit_constants over 344 committed v5e rows after the smooth
-    # gather-cliff + sell skew-term structural fixes —
-    # scripts/refit_costmodel.py output applied verbatim; medians of
-    # measured/predicted time per format.  The r4 dense fudge 0.206 was a
-    # thin-sample artifact (8 rows, medAPE 79%): with the medium study's
-    # dense rows the median correction is 0.741 — a 3.6x dispatch bias
-    # gone, VERDICT r4 weak #2)
-    # (r5b: refit after the gell reuse/tail + rbh density-branch
-    # structural fixes over 588 predictable rows — gell med/p90 APE
-    # 25.6/123 -> 21.2/72, rbh 41.7/90 -> 26.5/64, cv_gell p90 142 -> 64)
-    fudge: dict = dataclasses.field(default_factory=lambda: {
-        "gell": 1.208, "cv_gell": 0.876, "bsr_pallas": 0.922,
-        "dense": 1.091, "ell": 0.552, "gell16": 1.229, "merge": 0.924,
-        "panel_pallas": 1.039, "rbh": 0.951, "scoo": 1.140, "sell": 0.684,
-        "wcoo_bands": 0.970})
+    # (fit_constants); a format with no entry is uncorrected (1.0)
+    fudge: dict = dataclasses.field(default_factory=dict)
 
 
-C = V5eConstants()
+# NVIDIA H100 80GB HBM3 at a 400 W power limit, as printed by
+# `python chip_smoke.py --calibrate`.  gather_cliff is the card's 50 MB
+# L2 (the probes gather from a 16 MB and a 1 GiB source).  dispatch is the
+# per-iteration cost of the harness's chained timing loop, which every
+# measured row includes.  The fudges are unfitted: every format is priced
+# at 1.0 until a refit from H100 rows.
+H100_CONSTANTS = ChipConstants(
+    eff_bw=3.01e12, matmul_f32=4.956e13, matmul_bf16=7.225e14,
+    gather_fast=9.383e8, gather_slow=6.781e8, gather_cliff=50e6,
+    combine_bw=3.038e12, scoo_scatter=1.168e-9, dispatch=1.868e-5,
+    source="chip_smoke.py --calibrate, NVIDIA H100 80GB HBM3, 400 W",
+)
+
+C = H100_CONSTANTS
 
 
-def _dense_time(f: MatrixFeatures, n: int, flops_rate: float) -> float:
+def _dense_time(f: MatrixFeatures, n: int, flops_rate: float, c) -> float:
     flops = 2.0 * f.m * f.n * n
     bytes_ = 4.0 * (f.m * f.n + f.n * n + f.m * n)
-    return max(flops / flops_rate, bytes_ / C.eff_bw)
+    return max(flops / flops_rate, bytes_ / c.eff_bw)
 
 
 def _bsr_occupied_blocks(f: MatrixFeatures, clustering_cap: bool = False
@@ -112,18 +106,18 @@ def _bsr_occupied_blocks(f: MatrixFeatures, clustering_cap: bool = False
     return min(occ, f.nnz / per_occ)
 
 
-def _bsr_time(f: MatrixFeatures, n: int) -> float:
-    """128x128-block Pallas kernel: per occupied block one x-tile DMA +
-    one (128,128)@(128,n) matmul + a grid step."""
+def _bsr_time(f: MatrixFeatures, n: int, c) -> float:
+    """128x128-block Pallas kernel: per occupied block one x-tile load or
+    one (128,128)@(128,n) f32 matmul, whichever binds."""
     occ = _bsr_occupied_blocks(f)
     per_block = max(
-        128.0 * n * 4 / C.eff_bw,          # x-tile DMA
-        2.0 * 128 * 128 * n / C.mxu_f32,   # f32 block matmul
-    ) + C.grid_step
-    return occ * per_block + f.m * n * 4 / C.eff_bw
+        128.0 * n * 4 / c.eff_bw,          # x-tile load
+        2.0 * 128 * 128 * n / c.matmul_f32,   # f32 block matmul
+    )
+    return occ * per_block + f.m * n * 4 / c.eff_bw
 
 
-def _panel_time(f: MatrixFeatures, n: int) -> float:
+def _panel_time(f: MatrixFeatures, n: int, c) -> float:
     """Vertical 2048x128 panels: occupied panels run a dense matmul."""
     panels = max(f.m / 2048.0, 1.0) * max(f.n / 128.0, 1.0)
     lam = f.nnz / max(panels, 1e-9)
@@ -131,8 +125,7 @@ def _panel_time(f: MatrixFeatures, n: int) -> float:
     occupied_area = occ_frac * f.m * f.n
     flops = 2.0 * occupied_area * n
     bytes_ = occupied_area * 4 + occ_frac * panels * (128.0 * n * 4)
-    return max(flops / C.mxu_f32, bytes_ / C.eff_bw) \
-        + occ_frac * panels * C.grid_step
+    return max(flops / c.matmul_f32, bytes_ / c.eff_bw)
 
 
 def _gell_windowable(f: MatrixFeatures, bpe: float = 4.0) -> bool:
@@ -144,44 +137,48 @@ def _gell_windowable(f: MatrixFeatures, bpe: float = 4.0) -> bool:
     return f.avg_bw + 2.0 * f.std_bw + 1024 <= span_cap
 
 
-def _full_src_rate(src_bytes: float) -> float:
+def _full_src_rate(src_bytes: float, c) -> float:
     """Gather rows/s from a full (unwindowed) X of `src_bytes`.
 
-    The measured cliff is not a step at 64MB (r5 fix: merge/sell rows at
-    k~34k, src 66MB, ran ~2x faster than the step model said — ratio 0.55
-    vs the skew rows' ~1.0): interpolate fast*(64MB/src)^0.9 between the
-    two measured anchors (200 Mrow/s under 64MB, 55 Mrow/s at ~270MB+)."""
-    cap = float(1 << 26)
+    The rate falls smoothly past the cliff rather than in a step: the
+    model interpolates fast*(cliff/src)^0.9 down to the slow anchor (the
+    exponent was fitted on an earlier accelerator; the anchors are the
+    card's gather_fast/gather_slow probes)."""
+    cap = c.gather_cliff
     if src_bytes <= cap:
-        return C.gather_fast
-    return max(C.gather_slow, C.gather_fast * (cap / src_bytes) ** 0.9)
+        return c.gather_fast
+    return max(c.gather_slow, c.gather_fast * (cap / src_bytes) ** 0.9)
 
 
-def _unfloored_src_rate(src_bytes: float) -> float:
-    """_full_src_rate without the gather_slow floor: giant sources (>>270MB,
-    e.g. the (k, n) f32 X at k ~ 1M) keep degrading past the floor — the
-    r5 rbh rows at k = 393k-1M measured 1.3-1.9x under the floored model
-    and land on the smooth power law."""
-    cap = float(1 << 26)
+def _unfloored_src_rate(src_bytes: float, c) -> float:
+    """_full_src_rate without the gather_slow floor: giant sources (e.g.
+    the (k, n) f32 X at k ~ 1M) kept degrading past the floor in the rows
+    this model was fitted on."""
+    cap = c.gather_cliff
     if src_bytes <= cap:
-        return C.gather_fast
-    return C.gather_fast * (cap / src_bytes) ** 0.9
+        return c.gather_fast
+    return c.gather_fast * (cap / src_bytes) ** 0.9
 
 
-def _gather_rate(f: MatrixFeatures, n: int, bytes_per_elem: float) -> float:
+def residual_per_nnz(n: int, c: ChipConstants) -> float:
+    """Seconds per nnz of a gather kernel's work: one X-row gather from an
+    under-the-cliff source plus streaming its n f32 products in and out
+    (the per-slot terms of the sell/coo models)."""
+    return 1.0 / c.gather_fast + 2.0 * n * 4.0 / c.combine_bw
+
+
+def _gather_rate(f: MatrixFeatures, n: int, bytes_per_elem: float, c) -> float:
     src = f.n * n * bytes_per_elem
     if _gell_windowable(f, bytes_per_elem):
-        # windowed gather-reuse credit (ROADMAP r5 item 1): when each
-        # source row inside a window is hit many times (nnz per source
-        # row = avg_nnz * m/k >= ~16), the take runs up to ~1.5x the flat
-        # windowed rate — measured on the dense-ish windowed medium rows
-        # (49152/40-per-row rows at ratio 0.51-0.53 under the flat model;
-        # refit med/p90 APE 25.4/122 -> 22.8/66 with the credit)
+        # windowed gather-reuse credit: when each source row inside a
+        # window is hit many times (nnz per source row = avg_nnz * m/k >=
+        # ~16), the take runs faster than the flat windowed rate (1.5x in
+        # the rows this was fitted on; not yet re-fitted on the H100)
         per_src = f.avg_nnz_per_row * f.m / max(f.n, 1)
         if per_src >= 16.0:
-            return C.gather_fast * 1.5
-        return C.gather_fast
-    return _full_src_rate(src)
+            return c.gather_fast * 1.5
+        return c.gather_fast
+    return _full_src_rate(src, c)
 
 
 def _gell_slots_tail(f: MatrixFeatures) -> tuple:
@@ -203,13 +200,12 @@ def _gell_slots_tail(f: MatrixFeatures) -> tuple:
     return slots, min(tail, 0.9 * f.nnz)
 
 
-def _gell_time(f: MatrixFeatures, n: int, mode: str) -> float:
+def _gell_time(f: MatrixFeatures, n: int, mode: str, c) -> float:
     """Gather-ELL (ops/gell.py): windowed row gather + slot combine.
 
-    Rate model from the round-2 measurement campaign: gather throughput
-    is rows/s bounded, ~4x higher when the gather source is <64MB —
-    which windowing achieves for column-local matrices.  r5 additions
-    (ROADMAP item 1): windowed gather-reuse credit (see _gather_rate) and
+    Gather throughput is rows/s bounded and higher when the gather
+    source is under the cliff — which windowing achieves for column-local
+    matrices.  Plus the windowed gather-reuse credit (see _gather_rate) and
     a tail term — tail nnz (skew-boosted row + distribution overflow,
     _gell_slots_tail) gather from the FULL f32 X (gell.py::_add_tail
     takes from x, never a window) at the unfloored smooth rate."""
@@ -224,7 +220,7 @@ def _gell_time(f: MatrixFeatures, n: int, mode: str) -> float:
     else:
         bpe, planes = 4.0, 1
     convert = 0.0 if mode == "f32" else f.n * n * (4.0 + bpe * planes) \
-        / C.eff_bw
+        / c.eff_bw
     # gather throughput is ROWS/S bounded: split16 concatenates [hi|lo]
     # into one 2n-wide bf16 source (ONE take); only split24 pays a second
     # take for its lo plane.  Source bytes/elem-of-n (the cliff/window
@@ -232,84 +228,45 @@ def _gell_time(f: MatrixFeatures, n: int, mode: str) -> float:
     # bf16 mode windows bands twice as wide.
     takes = 2.0 if mode == "split24" else 1.0
     src_bpe = 2.0 if mode == "bf16" else 4.0
-    gather = takes * rows_g / _gather_rate(f, n, src_bpe)
+    gather = takes * rows_g / _gather_rate(f, n, src_bpe, c)
     if mode == "f32":
-        # windowed f32 now combines on the MXU too (WIN_F32_COMBINE,
-        # 6-pass HIGHEST): the gathered intermediate reads back at
-        # streaming rate; the direct (small-k) path keeps the VPU combine
-        # but is gather-dominated there
-        combine = (rows_g * n * 4.0 + f.m * n * 4.0) / C.eff_bw \
-            + 6.0 * 16.0 * rows_g * n / C.mxu_bf16
+        # windowed f32 combines as a block-diagonal matmul
+        # (WIN_F32_COMBINE, HIGHEST): the gathered intermediate reads
+        # back at streaming rate; the direct (small-k) path keeps the
+        # elementwise combine but is gather-dominated there
+        combine = (rows_g * n * 4.0 + f.m * n * 4.0) / c.eff_bw \
+            + 6.0 * 16.0 * rows_g * n / c.matmul_bf16
     else:
-        # MXU block-diagonal combine (windowed r3 / chunked r2 paths):
-        # the gathered intermediate is written once and streamed back
-        # into the matmul at full bandwidth; flops are ~free on the MXU
+        # block-diagonal matmul combine: the gathered intermediate is
+        # written once and streamed back into the matmul at full
+        # bandwidth; its flops are small next to the bf16 matmul rate
         nv = 3 if mode == "split24" else 2
         g_bytes = planes * rows_g * n * bpe * 2.0 + f.m * n * 4.0
-        mxu = 16.0 * rows_g * n * planes * nv / C.mxu_bf16
-        combine = g_bytes / C.eff_bw + mxu
-    t_tail = tail / _unfloored_src_rate(f.n * n * 4.0) \
-        + tail * n * 4.0 * 2.0 / C.eff_bw
+        mxu = 16.0 * rows_g * n * planes * nv / c.matmul_bf16
+        combine = g_bytes / c.eff_bw + mxu
+    t_tail = tail / _unfloored_src_rate(f.n * n * 4.0, c) \
+        + tail * n * 4.0 * 2.0 / c.eff_bw
     return convert + gather + combine + t_tail
 
 
-def _ell_time(f: MatrixFeatures, n: int) -> float:
+def _ell_time(f: MatrixFeatures, n: int, c) -> float:
     width = max(f.max_nnz_per_row, 1)
-    # the stock XLA ELL path never windows AND measures the full slow
+    # the stock XLA ELL path never windows and measured the full slow
     # rate already just past the cliff (its padded (m, width) gather
-    # pattern — unlike merge/sell whose smooth interpolation fits);
-    # keep the step model here (r5: smooth made ell medAPE worse)
-    rate = C.gather_fast if f.n * n * 4 <= (1 << 26) else C.gather_slow
+    # pattern — unlike merge/sell whose smooth interpolation fits), so it
+    # keeps the step model
+    rate = c.gather_fast if f.n * n * 4 <= c.gather_cliff else c.gather_slow
     return f.m * width / rate \
-        + (f.m * width * n * 4 + f.m * n * 4) / C.combine_bw
+        + (f.m * width * n * 4 + f.m * n * 4) / c.combine_bw
 
 
-def _coo_time(f: MatrixFeatures, n: int) -> float:
-    rate = _full_src_rate(f.n * n * 4.0)
+def _coo_time(f: MatrixFeatures, n: int, c) -> float:
+    rate = _full_src_rate(f.n * n * 4.0, c)
     return f.nnz / rate \
-        + (3.0 * f.nnz * n * 4 + f.m * n * 4) / C.combine_bw
+        + (3.0 * f.nnz * n * 4 + f.m * n * 4) / c.combine_bw
 
 
-def _wcoo_bands_slots(f: MatrixFeatures) -> float:
-    """Predicted aligned-slot count (spgrid.formats.wcoo layout).
-
-    A slot sub-row holds one (128-row block, 128-col window) pair with
-    lane = row % 128, so the slot count is
-
-        slots = sum over occupied (block, window) pairs of
-                (max entries any row has in that window) * 128
-
-    modeled with Poisson fills: lambda per (block, window) =
-    avg_nnz * 128^2 / bw; occupied fraction = 1 - exp(-lambda); sub-rows
-    per occupied pair ~ expected max of 128 Poisson(lambda/128) draws.
-    The round-2 flat 28 ns/nnz model missed exactly this: at wide bands
-    with low fill, occupancy stays ~1 while lane utilization collapses
-    (measured: 112 ns/nnz at bw 20.5k vs 26-31 ns/nnz at bw ~1k, the
-    r2 refresh art_393215 row vs the r1 banded sweep)."""
-    bw = max(f.avg_bw, 256.0)
-    blocks = max(f.m / 128.0, 1.0)
-    windows = max(bw / 128.0, 1.0)
-    lam_bw = f.avg_nnz_per_row * 128.0 * 128.0 / bw   # nnz per (b, w) pair
-    occupied = blocks * windows * (1.0 - math.exp(-lam_bw / 1.0))
-    lam_rw = lam_bw / 128.0                           # per (row, window)
-    # expected max of 128 Poisson(lam_rw): ~lam + 3*sqrt(lam) + 1.5 covers
-    # the small-lam (max ~2-4) and large-lam (max -> lam) ends adequately
-    sub_rows = lam_rw + 3.0 * math.sqrt(max(lam_rw, 1e-9)) + 1.5
-    return occupied * sub_rows * 128.0
-
-
-def _wcoo_bands_time(f: MatrixFeatures, n: int) -> float:
-    """Aligned-slot Pallas kernel: slot-stream + per-nnz VPU terms.
-
-    Calibrated on the two measured anchors (see _wcoo_bands_slots):
-    c_slot ~ 1.7 ns/slot, c_nnz ~ 20 ns/nnz reproduce both the narrow-band
-    26-31 ns/nnz and the wide-band 112 ns/nnz rows within ~20%."""
-    slots = _wcoo_bands_slots(f)
-    return slots * C.wcoo_slot + f.nnz * C.wcoo_nnz \
-        + f.m * n * 4 / C.eff_bw
-
-
-def _scoo_time(f: MatrixFeatures, n: int) -> float:
+def _scoo_time(f: MatrixFeatures, n: int, c) -> float:
     """Column-windowed COO (ops/scoo.py): every gather runs at the fast
     (<64MB-source) rate; the combine is an in-place sorted scatter-add.
 
@@ -326,13 +283,13 @@ def _scoo_time(f: MatrixFeatures, n: int) -> float:
     conc = min(ns / max(band_ns, 1e-9), ns)
     e_pad = mu * conc + 3.0 * math.sqrt(max(mu * conc, 1.0)) + 8
     nnz_pad = nb * ns * e_pad
-    gather = nnz_pad / C.gather_fast
-    combine = nnz_pad * C.scoo_scatter
-    stream = (f.m * n * 4.0 + nnz_pad * n * 4.0) / C.eff_bw
+    gather = nnz_pad / c.gather_fast
+    combine = nnz_pad * c.scoo_scatter
+    stream = (f.m * n * 4.0 + nnz_pad * n * 4.0) / c.eff_bw
     return gather + combine + stream
 
 
-def _merge_time(f: MatrixFeatures, n: int) -> float:
+def _merge_time(f: MatrixFeatures, n: int, c) -> float:
     """Merge-path equal-nnz blocks (ops/merge.py): per nnz the kernel pays
     a 128-tall one-hot MXU product (2*128*n flops), the one-hot + gathered
     operand traffic (~5KB), and an unsorted segment-sum over B*128 strip
@@ -343,15 +300,15 @@ def _merge_time(f: MatrixFeatures, n: int) -> float:
     # merge always gathers from the FULL X (never windowed), so the
     # gell-only windowed fast-gather credit of _gather_rate does not
     # apply — smooth full-source cliff (see _full_src_rate)
-    gather = f.nnz / _full_src_rate(f.n * n * 4.0)
-    mxu = blocks * 2.0 * 128.0 * T * n / C.mxu_f32
+    gather = f.nnz / _full_src_rate(f.n * n * 4.0, c)
+    mxu = blocks * 2.0 * 128.0 * T * n / c.matmul_f32
     onehot_bytes = blocks * 128.0 * T * 4.0 * 2.0
     g_bytes = blocks * T * n * 4.0 * 2.0
     seg_bytes = blocks * 128.0 * n * 4.0 * 2.0 + f.m * n * 4.0
-    return gather + mxu         + (onehot_bytes + g_bytes + seg_bytes) / C.eff_bw
+    return gather + mxu         + (onehot_bytes + g_bytes + seg_bytes) / c.eff_bw
 
 
-def _sell_time(f: MatrixFeatures, n: int) -> float:
+def _sell_time(f: MatrixFeatures, n: int, c) -> float:
     """SELL-C-sigma SpMM (ops/xla.py::spmm_sell): sigma-sorting keeps slot
     padding small, but the gather source is the full X (never windowed)
     and the permutation costs two extra (m, n) scatter passes.
@@ -363,50 +320,43 @@ def _sell_time(f: MatrixFeatures, n: int) -> float:
     merge is skew-proof by construction and the flat model ranked them
     as equals inside the scattered class."""
     slots = 1.1 * f.nnz + 32.0 * f.m / 8.0
-    rate = _full_src_rate(f.n * n * 4.0)
+    rate = _full_src_rate(f.n * n * 4.0, c)
     skew_pen = 1.0 + 0.125 * math.log10(1.0 + max(f.skew, 0.0))
     return skew_pen * (slots / rate
                        + (slots * n * 4.0 + 3.0 * f.m * n * 4.0)
-                       / C.combine_bw)
+                       / c.combine_bw)
 
 
-def _rbh_time(f: MatrixFeatures, n: int) -> float:
+def _rbh_time(f: MatrixFeatures, n: int, c) -> float:
     """Reorder-block hybrid (ops/rbh.py): per-call X column-perm gather +
-    MXU block passes over the clustered fraction + gather residual.
+    dense block passes over the clustered fraction + gather residual.
 
-    Clusterability model calibrated on the r5 measured splits
-    (reorder_amortization.csv): the inspect step packs hi_frac ~
-    0.74 * crs of the nnz (measured 0.554/0.75, 0.22/0.30, 0.196/...)
-    into blocks of fill c ~ 90 * run^0.42 nnz (measured 163 at run=4,
-    113 at run=1.43, 92 at run=1.05), where run = 1/(1-crs) is the
-    column-reuse row-run length; the residual is the non-local tail.
-
-    r5b recalibration on the 33 measured medium-study rbh rows (med/p90
-    APE 52.7/98.6 -> 20.7/65.6):
+    Clusterability model (a property of the inspector, not the device):
+    the inspect step packs hi_frac ~ 0.74 * crs of the nnz into blocks of
+    fill ~ 90 * run^0.42 nnz, where run = 1/(1-crs) is the column-reuse
+    row-run length; the residual is the non-local tail.
     - density branch: when the UNCLUSTERED expected block fill
-      density*128^2 already clears the admission threshold (~32 nnz,
-      rbh.auto_threshold ballpark), the inspector keeps essentially every
-      block (hi_frac -> 1) regardless of crs — the dense-ish rows
-      (dens*16384 = 137-3353) measured 14-100x under the crs-only model.
+      density*128^2 already clears the admission threshold (~32 nnz), the
+      inspector keeps essentially every block (hi_frac -> 1).
     - boosted-row densification: the skew-boosted row (gen realizes skew
       as ONE row of avg*(1+skew) nnz) has ~128*b/k nnz per 128-col window;
       past the threshold it densifies into ~k/128 blocks instead of
-      riding the 29ns/nnz residual.
+      riding the residual.
     - MAX_HI_BLOCKS budget (rbh.py: 2GB / 64KB = 32768 blocks) caps the
       dense split; the spill returns to the residual.
     - per-block cost x0.6: vertically-adjacent blocks in one column
-      window share the (128, n) x-tile DMA, so the worst-case per-block
-      DMA accounting overcharges clustered splits (fitted).
-    - perm gather at the UNFLOORED smooth rate: k = 393k-1M rows from a
-      0.8-2GB source measured past the 55 Mrow/s floor."""
+      window share their (128, n) x-tile, so the worst-case per-block
+      accounting overcharges clustered splits (fitted on an earlier
+      accelerator; unfitted on the H100).
+    - perm gather at the unfloored smooth rate."""
     run = 1.0 / max(1.0 - min(f.cross_row_similarity, 0.999), 1.0 / 128.0)
     clus_fill = 90.0 * min(run, 128.0) ** 0.42
     base_fill = f.density * 16384.0
     thresh = 32.0
     if base_fill >= thresh:
-        hi_frac, c = 1.0, max(base_fill, clus_fill)
+        hi_frac, fill = 1.0, max(base_fill, clus_fill)
     else:
-        hi_frac, c = min(1.0, 0.74 * f.cross_row_similarity), clus_fill
+        hi_frac, fill = min(1.0, 0.74 * f.cross_row_similarity), clus_fill
     hi_nnz = hi_frac * f.nnz
     extra_blocks = 0.0
     boost = min(f.avg_nnz_per_row * (1.0 + max(f.skew, 0.0)), float(f.n))
@@ -414,32 +364,35 @@ def _rbh_time(f: MatrixFeatures, n: int) -> float:
             and 128.0 * boost / max(f.n, 1) >= thresh:
         hi_nnz += boost * (1.0 - hi_frac)
         extra_blocks = f.n / 128.0
-    blocks = hi_nnz / max(c, 1.0) + extra_blocks
+    blocks = hi_nnz / max(fill, 1.0) + extra_blocks
     max_blocks = float((2 << 30) // (128 * 128 * 4))
     if blocks > max_blocks:
-        hi_nnz -= (blocks - max_blocks) * c
+        hi_nnz -= (blocks - max_blocks) * fill
         blocks = max_blocks
-    per_block = max(128.0 * n * 4 / C.eff_bw,
-                    2.0 * 128 * 128 * n / C.mxu_f32) + C.grid_step
-    perm = f.n / _unfloored_src_rate(f.n * n * 4.0)
-    res = (f.nnz - hi_nnz) * 29e-9 * (n / 512.0)
-    stream = f.m * n * 4.0 / C.eff_bw
+    per_block = max(128.0 * n * 4 / c.eff_bw,
+                    2.0 * 128 * 128 * n / c.matmul_f32)
+    perm = f.n / _unfloored_src_rate(f.n * n * 4.0, c)
+    res = (f.nnz - hi_nnz) * residual_per_nnz(n, c)
+    stream = f.m * n * 4.0 / c.eff_bw
     return perm + blocks * per_block * 0.6 + res + stream
 
 
-def _fudged(fmt: str, t: float) -> float:
-    return t * C.fudge.get(fmt, 1.0)
+def _fudged(fmt: str, t: float, c) -> float:
+    return t * c.fudge.get(fmt, 1.0)
 
 
-def estimate_spmm_time(f: MatrixFeatures, fmt: str, n: int) -> float:
+def estimate_spmm_time(f: MatrixFeatures, fmt: str, n: int,
+                       consts: "ChipConstants | None" = None) -> float:
     """Seconds for one SpMM call of `fmt` on a matrix with features `f`.
 
     Returns +inf for formats that are inapplicable (would OOM / wrong n).
+    ``consts`` defaults to the card's table ``C``.
     """
+    c = consts or C
     if fmt == "dense":
         if f.m * f.n * 4 > (1 << 31):
             return math.inf
-        return _fudged(fmt, _dense_time(f, n, C.mxu_f32)) + C.dispatch
+        return _fudged(fmt, _dense_time(f, n, c.matmul_f32, c), c) + c.dispatch
     if fmt in ("bsr_pallas", "bsr"):
         # occupied blocks materialize DENSELY (128x128x4B each): a
         # scattered 137k-row matrix occupies ~nnz blocks -> ~190GB and
@@ -448,72 +401,57 @@ def estimate_spmm_time(f: MatrixFeatures, fmt: str, n: int) -> float:
         if _bsr_occupied_blocks(f, clustering_cap=True) * 128 * 128 * 4 \
                 > (1 << 31):
             return math.inf
-        return _fudged(fmt, _bsr_time(f, n)) + C.dispatch
-    if fmt in ("panel_pallas", "cv_panel"):
+        return _fudged(fmt, _bsr_time(f, n, c), c) + c.dispatch
+    if fmt in ("panel", "cv_panel"):
         est_panel_bytes = min(1.0, f.density * 2048 * 128) * f.m * f.n * 4
         if est_panel_bytes > (1 << 31):
             return math.inf
-        return _fudged(fmt, _panel_time(f, n)) + C.dispatch
+        return _fudged(fmt, _panel_time(f, n, c), c) + c.dispatch
     if fmt == "gell":
-        return _fudged(fmt, _gell_time(f, n, "f32")) + C.dispatch
+        return _fudged(fmt, _gell_time(f, n, "f32", c), c) + c.dispatch
     if fmt == "gell16":
-        return _fudged(fmt, _gell_time(f, n, "split16")) + C.dispatch
+        return _fudged(fmt, _gell_time(f, n, "split16", c), c) + c.dispatch
     if fmt == "cv_gell":
-        return _fudged(fmt, _gell_time(f, n, "bf16")) + C.dispatch
+        return _fudged(fmt, _gell_time(f, n, "bf16", c), c) + c.dispatch
     if fmt == "ell":
         slots_est = f.m * max(f.max_nnz_per_row, 1)
         if slots_est > 32 * max(f.nnz, 1) and slots_est * 8 > (64 << 20):
             return math.inf
-        return _fudged(fmt, _ell_time(f, n)) + C.dispatch
+        return _fudged(fmt, _ell_time(f, n, c), c) + c.dispatch
     if fmt == "coo":
-        return _fudged(fmt, _coo_time(f, n)) + C.dispatch
-    if fmt == "wcoo_bands":
-        if f.avg_bw_scaled >= 0.25:
-            return math.inf          # slot packing collapses unbanded
-        return _fudged(fmt, _wcoo_bands_time(f, n)) + C.dispatch
+        return _fudged(fmt, _coo_time(f, n, c), c) + c.dispatch
     if fmt == "scoo":
-        return _fudged(fmt, _scoo_time(f, n)) + C.dispatch
+        return _fudged(fmt, _scoo_time(f, n, c), c) + c.dispatch
     if fmt == "merge":
-        return _fudged(fmt, _merge_time(f, n)) + C.dispatch
+        return _fudged(fmt, _merge_time(f, n, c), c) + c.dispatch
     if fmt == "sell":
-        return _fudged(fmt, _sell_time(f, n)) + C.dispatch
+        return _fudged(fmt, _sell_time(f, n, c), c) + c.dispatch
     if fmt == "rbh":
         # densified-block budget: the hybrid caps itself at 2GB of blocks
         # (rbh.MAX_HI_BLOCKS), so it is always *runnable*; inapplicable
         # only where there is nothing to cluster (no reuse signal)
         if f.cross_row_similarity <= 0.0 and f.avg_num_neighbours <= 0.0:
             return math.inf
-        return _fudged(fmt, _rbh_time(f, n)) + C.dispatch
+        return _fudged(fmt, _rbh_time(f, n, c), c) + c.dispatch
     return math.inf
 
 
 # Default candidate set for f32-exact cost-based auto dispatch (CV modes
-# trade accuracy and are opted into explicitly).  Round-4 admissions,
-# decided on the newkernels grid + skew rows (newkernels_r3.csv) via
-# scripts/refit_costmodel.py validation tables:
-# - merge ADMITTED: model medAPE 10.1% (6 rows); wins every skew row
-#   (37.1 vs gell's 21.2 GF at skew=1e5 — the mawi-class regime the
-#   reference covers with merge-based SpMV, spmv_kernel_merge.cpp:61-65).
-# - sell ADMITTED: wins scat_393k (34.7 GF, best f32-exact row of the
-#   class) and the mid-density medium-study head-to-head (44.5 vs 28.1);
-#   medAPE 33% pre-refit, re-centered by the fitted 0.670 fudge.
-# - scoo stays OUT: measured (7 rows) and loses every head-to-head in
-#   its target class (11-27 GF vs sell/merge/gell 28-37).
-# - wcoo_bands stays OUT: fill-aware slot model FAILS validation
-#   (medAPE 44.6%, p90 143% across the bw range — far over the ~30%
-#   admission bar; see refit output).
-# - ell DROPPED r5: its model fails the 30% bar (medAPE 37.7% on 11
-#   rows) and the format is functionally dominated by gell (= ELL +
-#   window plan + skew tail); a failing model in AUTO can only mis-steal
-#   gell's rows.  Still available as an explicit kernel.
-# - rbh ADMITTED r5: measured on 12 class rows (reorder_rbh.csv +
-#   bf16 leg) — wins scat_524k (+43% over the prior class best), the
-#   skew grid (40.0/39.8/37.5 vs merge's 35.9/36.2/37.1), ties
-#   scat_393k, and carries the mac_econ twin at 118-138 GF (past the
-#   105-GFLOPS MKL-IE bar); model medAPE 17.8% (under the 30% bar),
-#   fitted fudge 1.051.
-AUTO_CANDIDATES = ("dense", "bsr_pallas", "panel_pallas", "gell",
+# trade accuracy and are opted into explicitly).  The admissions were
+# decided by measured head-to-heads and model-validation tables
+# (scripts/refit_costmodel.py) on an earlier accelerator; none is
+# re-validated on the H100 yet (PERF.md, Open questions):
+# - merge: the skew-proof kernel of the skewed-row regime the reference
+#   covers with merge-based SpMV (spmv_kernel_merge.cpp:61-65).
+# - sell: the scattered-hypersparse class.
+# - rbh: the clustered-scattered class (MKL-IE structure reuse).
+# - out: scoo (lost every head-to-head in its class) and ell (dominated
+#   by gell = ELL + window plan + skew tail); both stay explicit kernels.
+AUTO_CANDIDATES = ("dense", "bsr_pallas", "panel", "gell",
                    "coo", "merge", "sell", "rbh")
+
+# SpMV (n = 1) candidates: the XLA gather family, ranked by the same models.
+SPMV_CANDIDATES = ("coo", "sell", "merge", "gell")
 
 
 def _finite_or_zero(v) -> float:
@@ -632,7 +570,8 @@ def tolerant_candidates(f: MatrixFeatures, n: int) -> tuple:
 
 def select_format_cost(f: MatrixFeatures, n: int = 512,
                        candidates=AUTO_CANDIDATES,
-                       tolerance: float = 0.0) -> str:
+                       tolerance: float = 0.0,
+                       consts: "ChipConstants | None" = None) -> str:
     """argmin of the analytic time models over applicable formats.
 
     tolerance >= CV_TOLERANCE additionally offers the value-compressed
@@ -643,7 +582,7 @@ def select_format_cost(f: MatrixFeatures, n: int = 512,
         cands = cands + tolerant_candidates(f, n)
     best, best_t = None, math.inf
     for fmt in cands:
-        t = estimate_spmm_time(f, fmt, n)
+        t = estimate_spmm_time(f, fmt, n, consts)
         if t < best_t:
             best, best_t = fmt, t
     if best is None:

@@ -24,49 +24,35 @@ from spgrid.ops.layouts import (
     DeviceCV,
 )
 from spgrid.ops.pallas.bsr_spmm import bsr_spmm
-from spgrid.ops.pallas.bsr_spmm_cstat import DeviceBSRCol, bsr_spmm_cstat
-from spgrid.ops.pallas.panel_spmm import DevicePanels, panel_spmm
-from spgrid.ops.pallas.wcoo_spmm import DeviceWCOO, wcoo_spmm
-from spgrid.ops.pallas.wcoo_spmm_aligned import DeviceWCOOBands, \
-    wcoo_spmm_aligned
-from spgrid.ops.pallas.wcoo_spmv import DeviceWCOOAligned, wcoo_spmv
-from spgrid.ops.pallas.wrow_spmv import DeviceWROW, wrow_spmv
-from spgrid.ops.pallas.wpack_spmv import DeviceWPACK, wpack_spmv
+from spgrid.ops.panels import DevicePanels, panel_spmm
 from spgrid.ops.gell import DeviceGELL, gell_spmm
 from spgrid.ops.merge import DeviceMerge, merge_spmm
 from spgrid.ops.scoo import DeviceSCOO, scoo_spmm
-from spgrid.ops.pallas.dgell import DeviceDGELL, dgell_spmm
 from spgrid.ops.rbh import DeviceRBH, rbh_spmm
 
-FORMATS = ("dense", "bsr_pallas", "bsrc_pallas", "panel_pallas", "bsr",
-           "ell", "sell", "coo", "csc", "ldu", "cv_bf16", "cv_int8",
-           "cv_panel", "wcoo_pallas", "wcoo_bands", "wcoo_spmv",
-           "wrow_spmv", "wpack_spmv", "gell", "gell16", "cv_gell", "merge",
-           "scoo", "dgell", "rbh")
+FORMATS = ("dense", "bsr_pallas", "panel", "bsr", "ell", "sell", "coo",
+           "csc", "ldu", "cv_bf16", "cv_int8", "cv_panel", "gell", "gell16",
+           "cv_gell", "merge", "scoo", "rbh")
 
 
 def select_format(f: MatrixFeatures, n: int = 512,
                   dense_limit_bytes: int = 1 << 31,
-                  tolerance: float = 0.0) -> str:
-    """Format selection for `auto` dispatch.
-
-    SpMV (n=1) keeps the measured round-1 routing (fused vector kernels).
-    SpMM routes through the analytic cost models (ops/costmodel.py):
-    argmin of per-kernel time estimates built from measured v5e constants.
-    Round-1's threshold heuristics missed regime crossovers that depend on
-    more than one feature (small-m dense, large-m gather regimes); the
-    cost model ranks them directly.
+                  tolerance: float = 0.0, consts=None) -> str:
+    """Format selection for `auto` dispatch: argmin of the analytic
+    per-kernel time models (ops/costmodel.py) over the applicable
+    candidates — the XLA gather family for SpMV (n = 1).  Threshold heuristics miss regime
+    crossovers that depend on more than one feature (small-m dense,
+    large-m gather regimes); the cost model ranks them directly.
 
     tolerance: stated acceptable relative error; at >= costmodel.
     CV_TOLERANCE (~bf16 X representation) the value-compressed kernels
     join the candidate set (the reference's CV study trade, explicit).
     """
-    if n == 1 and f.density < 0.05:
-        # SpMV: fused vector kernels (measured: wrow wins 10-20% over the
-        # aligned-slot kernel on every 100k benchmark config)
-        return "wrow_spmv"
-    from spgrid.ops.costmodel import select_format_cost
-    return select_format_cost(f, n, tolerance=tolerance)
+    from spgrid.ops.costmodel import (
+        AUTO_CANDIDATES, SPMV_CANDIDATES, select_format_cost)
+    cands = SPMV_CANDIDATES if n == 1 else AUTO_CANDIDATES
+    return select_format_cost(f, n, candidates=cands, tolerance=tolerance,
+                              consts=consts)
 
 
 def build(csr: CSRMatrix, fmt: str, *, bm: Optional[int] = None,
@@ -74,18 +60,15 @@ def build(csr: CSRMatrix, fmt: str, *, bm: Optional[int] = None,
     """Materialize the device operand for a format name.
 
     bm=None picks the per-format default: 128 for the Pallas BSR kernel
-    (amortizes the per-block X-tile DMA across a full MXU-height output
-    block — 8.9x measured over bm=8), 8 for the XLA einsum path (keeps the
-    gathered (nb, bk, n) intermediate small)."""
+    (each X tile it loads feeds a full block of output rows), 8 for the
+    XLA einsum path (keeps the gathered (nb, bk, n) intermediate small)."""
     if fmt == "dense":
         return jnp.asarray(csr.to_dense())
     if fmt in ("bsr", "bsr_pallas"):
         if bm is None:
             bm = 128 if fmt == "bsr_pallas" else 8
         return DeviceBSR.from_csr(csr, bm=bm, bk=bk)
-    if fmt == "bsrc_pallas":
-        return DeviceBSRCol.from_csr(csr, bm=bm or 128, bk=bk)
-    if fmt == "panel_pallas":
+    if fmt == "panel":
         return DevicePanels.from_csr(csr, bk=bk)
     if fmt == "ell":
         return DeviceELL.from_csr(csr)
@@ -101,24 +84,14 @@ def build(csr: CSRMatrix, fmt: str, *, bm: Optional[int] = None,
     if fmt in ("cv_bf16", "cv_int8"):
         return DeviceCV.from_csr(csr, mode=fmt.split("_")[1])
     if fmt == "cv_panel":
-        # CV substrate in the panel kernel: bf16 blocks halve the dominant
-        # panel stream (measured 114 -> 100us at 4096^2/50%)
+        # CV substrate in the panel layout: bf16 panels halve the dominant
+        # panel stream
         import dataclasses as _dc
         p = DevicePanels.from_csr(csr, bk=bk)
         return _dc.replace(p, panels=p.panels.astype(jnp.bfloat16))
-    if fmt == "wcoo_pallas":
-        return DeviceWCOO.from_csr(csr)
-    if fmt == "wcoo_bands":
-        return DeviceWCOOBands.from_csr(csr)
-    if fmt == "wcoo_spmv":
-        return DeviceWCOOAligned.from_csr(csr)
-    if fmt == "wrow_spmv":
-        return DeviceWROW.from_csr(csr)
-    if fmt == "wpack_spmv":
-        return DeviceWPACK.from_csr(csr)
     if fmt == "gell":
         # exact f32; gathers through band windows when the structure is
-        # column-local (the XLA gather runs ~4-5x faster from <64MB srcs)
+        # column-local
         return DeviceGELL.from_csr(csr, mode="f32")
     if fmt == "gell16":
         return DeviceGELL.from_csr(csr, mode="split16")
@@ -126,16 +99,12 @@ def build(csr: CSRMatrix, fmt: str, *, bm: Optional[int] = None,
         return DeviceGELL.from_csr(csr, mode="bf16")
     if fmt == "merge":
         return DeviceMerge.from_csr(csr)
-    if fmt == "dgell":
-        # per-nnz HBM->VMEM DMA gather: scattered structure, X in HBM
-        # (ops/pallas/dgell.py; MKL-IE regime, spmm_kernel_mkl_ie.cpp:75-104)
-        return DeviceDGELL.from_csr(csr)
     if fmt == "scoo":
-        # column-windowed COO: every gather source stays under the ~64MB
-        # rate cliff even when the structure is scattered (ops/scoo.py)
+        # column-windowed COO: every gather source is a bounded window of
+        # X even when the structure is scattered (ops/scoo.py)
         return DeviceSCOO.from_csr(csr)
     if fmt == "rbh":
-        # reorder-block hybrid: column-cluster reorder into MXU block
+        # reorder-block hybrid: column-cluster reorder into dense block
         # tiles + gather residual (ops/rbh.py; the MKL-IE structure-reuse
         # regime, spmm_kernel_mkl_ie.cpp:75-104)
         return DeviceRBH.from_csr(csr)
@@ -146,8 +115,7 @@ def spmm_fn(fmt: str) -> Callable:
     return {
         "dense": xops.spmm_dense,
         "bsr_pallas": bsr_spmm,
-        "bsrc_pallas": bsr_spmm_cstat,
-        "panel_pallas": panel_spmm,
+        "panel": panel_spmm,
         "bsr": xops.spmm_bsr,
         "ell": xops.spmm_ell,
         "coo": xops.spmm_coo,
@@ -157,47 +125,13 @@ def spmm_fn(fmt: str) -> Callable:
         "cv_bf16": xops.spmm_cv,
         "cv_int8": xops.spmm_cv,
         "cv_panel": panel_spmm,
-        "wcoo_pallas": wcoo_spmm,
-        "wcoo_bands": wcoo_spmm_aligned,
-        "wcoo_spmv": _wcoo_spmv_2d,
-        "wrow_spmv": _wrow_spmv_2d,
-        "wpack_spmv": _wpack_spmv_2d,
         "gell": gell_spmm,
         "gell16": gell_spmm,
         "cv_gell": gell_spmm,
         "merge": merge_spmm,
         "scoo": scoo_spmm,
-        "dgell": dgell_spmm,
         "rbh": rbh_spmm,
     }[fmt]
-
-
-def _wcoo_spmv_2d(a, x):
-    """Bench adapter: the fused SpMV kernel on a (k, 1) dense operand."""
-    y = wcoo_spmv(a, x[:, 0] if x.ndim == 2 else x)
-    return y[:, None] if x.ndim == 2 else y
-
-
-def _wpack_spmv_2d(a, x):
-    """Bench adapter: multi-row packed SpMV on a (k, 1) dense operand.
-
-    SpMV-only — a wider operand would silently drop columns."""
-    if x.ndim == 2 and x.shape[1] != 1:
-        raise ValueError("wpack_spmv is an SpMV kernel (n must be 1); "
-                         f"got n={x.shape[1]}")
-    y = wpack_spmv(a, x[:, 0] if x.ndim == 2 else x)
-    return y[:, None] if x.ndim == 2 else y
-
-
-def _wrow_spmv_2d(a, x):
-    """Bench adapter: the WROW SpMV kernel on a (k, 1) dense operand.
-
-    SpMV-only — a wider operand would silently drop columns."""
-    if x.ndim == 2 and x.shape[1] != 1:
-        raise ValueError("wrow_spmv is an SpMV kernel (n must be 1); "
-                         f"got n={x.shape[1]}")
-    y = wrow_spmv(a, x[:, 0] if x.ndim == 2 else x)
-    return y[:, None] if x.ndim == 2 else y
 
 
 @dataclasses.dataclass

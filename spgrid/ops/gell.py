@@ -6,39 +6,33 @@ m = 65k-2M, n = 512, where EPYC MKL-IE lands 105-328 GFLOPS), and doubles
 as the SELL-C-sigma SpMM the reference benchmarks standalone
 (spmv_code_sell-C-s/spmvbench/spmvbench.c:1-303).
 
-TPU design rationale (all constants measured on v5e, scripts/exp_gather.py):
+Design:
 
-- The irreducible primitive is a random gather of ~2KB X rows from HBM.
-  XLA's row gather runs at ~31 Gelem/s for f32 but ~143-188 Gelem/s for
-  16-bit dtypes (4.6-6x faster per element) — so the kernel gathers X in a
-  16-bit representation even for f32 inputs.
-- f32 accuracy is preserved by a **hi/lo bfloat16 split**: X is expanded
-  once per call into ``[bf16(x) | bf16(x - f32(bf16(x)))]`` of shape
-  (k, 2n); one wide take moves both halves (2KB rows again, but at the
-  16-bit gather rate), and the consumer reconstructs ``hi + lo`` (~2^-17
-  relative error, far inside the f32 oracle gate of 1e-4).
+- The irreducible primitive is a random gather of ~2KB X rows (n = 512
+  f32) from device memory.
 - ELL (fixed slots/row) instead of COO+segment-sum: the slot sum is a
-  dense reduction XLA fuses, with no scatter. Skewed rows overflow into a
-  small COO tail handled by segment_sum.
-- Row-chunked unrolled (static python loop, NOT lax.map — measured 18%
-  slower from loop overhead) so the gathered intermediate stays bounded
+  dense reduction XLA fuses, with no scatter.  Skewed rows overflow into
+  a small COO tail handled by segment_sum.
+- Rows are processed in chunks so the gathered intermediate stays bounded
   for m up to millions.
-
-Round-2 addendum (the decisive measurement): the gather-rate cliff is a
-function of SOURCE BYTES, not dtype — takes run ~180-280 Mrow/s when the
-source array is under ~64MB and ~45-60 Mrow/s above (the earlier
-"16-bit is faster" readings were confounded: bf16 halved the source).
-So the primary trick is **windowed gathering**: for column-local (banded)
-matrices, rows are processed in uniform chunks whose X window (a dynamic
-slice precomputed at format build) stays under the cliff, and a lax.scan
-drives per-chunk take+combine with host-precomputed window-local indices.
+- **Windowed gathering**: the gather rate falls once the source outgrows
+  the last-level cache (on the H100, 938 Mrow/s from a 16 MB source vs
+  678 Mrow/s from 1 GiB — the `gather_fast`/`gather_slow` probes of
+  `chip_smoke.py --calibrate`).  For column-local (banded) matrices, rows
+  are processed in uniform chunks whose X window (a dynamic slice
+  precomputed at format build) stays under a fixed source size, and a
+  lax.scan drives per-chunk take+combine with host-precomputed
+  window-local indices.  The window size and the split modes below were
+  tuned on an earlier accelerator and are not re-measured on the H100
+  (PERF.md, Open questions).
 
 Modes: "f32" (default: exact, windowed when the structure allows),
 "bf16" (CV-on-X mode — half gather bytes, windowed, gated against the
 bf16 X it gathers; ref value-compression study lib/bitstream.c),
-"split24"/"split16" (bf16 plane splits of X with MXU block-diagonal slot
-contraction — useful in the unwindowable 32-128MB source range where
-smaller planes dodge the cliff; split24 is f32-oracle-exact).
+"split24"/"split16" (bf16 plane splits of X — ``[bf16(x) | bf16(x -
+f32(bf16(x)))]``, reconstructed as ``hi + lo`` — with a block-diagonal
+matmul slot contraction; halves the gathered source bytes; split24 is
+f32-oracle-exact).
 """
 
 from __future__ import annotations
@@ -199,10 +193,9 @@ def _split_planes(x: jax.Array, nplanes: int) -> tuple:
 
     Truncation split: plane p holds the next 8 mantissa bits.  3 planes
     cover the full 24-bit f32 mantissa => hi+mid+lo == x EXACTLY, so the
-    kernel is f32-oracle-exact while every gather runs at the measured
-    16-bit element rate (scripts/exp_gather.py: 143-188 vs 31 Gelem/s).
+    kernel is f32-oracle-exact while every gather moves 16-bit elements.
     Planes stay separate (k, n) arrays: gathers of non-power-of-2-width
-    concatenated rows fall off XLA's fast gather path (measured 5x).
+    concatenated rows can fall off XLA's fast gather path.
     """
     planes = []
     r = x
@@ -229,8 +222,8 @@ def _chunk_rows(m_pad: int, slots: int, n: int, mode: str,
                 budget: int | None = None) -> int:
     """Row-chunk size keeping the gathered intermediate under `budget` B.
 
-    Chunking costs ~1-2ms per extra chunk (measured), so the budget is
-    generous: chunk only when the gathered intermediate would strain HBM.
+    Each extra chunk costs a loop step, so the budget is generous: chunk
+    only when the gathered intermediate would strain device memory.
     """
     if budget is None:
         budget = _CHUNK_BUDGET
@@ -244,10 +237,9 @@ def _blockdiag_A(v: jax.Array) -> jax.Array:
     """(rb, S) values -> (rb/8, 8, 8S) bf16 block-diagonal slot matrix.
 
     Row r of an 8-row block multiplies only its own S gathered rows; the
-    MXU runs the slot contraction as a batched (8, 8S) @ (8S, n) matmul.
-    The ~8x zero-padding flops are free next to the VPU alternative: the
-    multi-stream convert+mul+reduce combine measured ~200 GB/s while the
-    bf16 MXU eats it at >10x that.
+    slot contraction runs as a batched (8, 8S) @ (8S, n) bf16 matmul,
+    whose ~8x zero-padding flops are cheap next to the multi-stream
+    convert+mul+reduce alternative.
     """
     rb, S = v.shape
     eye = jnp.eye(8, dtype=v.dtype)
@@ -268,10 +260,8 @@ def _mxu_combine(a_planes, b, nb8, S, n_out, precision=None):
 
 # windowed-f32 combine engine: "mxu" (f32 block-diagonal dot at HIGHEST,
 # reads the gathered intermediate at streaming rate) or "vpu" (broadcast
-# mul + slot-axis reduce, the round-2 path).  Module-level so the TPU A/B
-# (scripts/exp_gell_bench.py) can flip it; a static jit arg either way.
-# The env override lets the study queue apply the measured winner
-# (scripts/calibrate_gell_combine.py) without a code change mid-queue.
+# mul + slot-axis reduce).  A static jit arg either way; the env override
+# selects the engine for an A/B without a code change.
 WIN_F32_COMBINE = os.environ.get("SPGRID_GELL_F32_COMBINE", "mxu")
 
 
@@ -284,7 +274,7 @@ def _gell_spmm(cols, vals, trows, tcols, tvals, wcols, wvals, wbases, x, *,
     use_win = win_plan is not None and mode in ("f32", "bf16", "split16")
     if use_win:
         # the plan was sized for n=512 f32; re-check the window source
-        # bytes at this n/mode against the ~64MB gather cliff
+        # bytes at this n/mode against the 64MB window cap
         row_bytes = {"f32": 4 * n, "bf16": 2 * n, "split16": 4 * n}[mode]
         use_win = win_plan[2] * row_bytes <= (1 << 26)
         if mode == "split16":
@@ -295,11 +285,10 @@ def _gell_spmm(cols, vals, trows, tcols, tvals, wcols, wvals, wbases, x, *,
             use_win = use_win and (n & (n - 1)) == 0
     if use_win:
         nb, rbw, span = win_plan
-        # adaptive source materialization (r5, VERDICT r4 item 7): the
-        # derived bf16/[hi|lo] source is a full-size copy next to X; at
-        # giant m the residents (X + stacked scan output + y) already
-        # claim most of HBM and the extra copy OOMed cv_gell at 1M rows
-        # (r3_giant_band_1m REX).  Above the budget, slice the f32 X per
+        # adaptive source materialization: the derived bf16/[hi|lo]
+        # source is a full-size copy next to X; at giant m the residents
+        # (X + stacked scan output + y) already claim most of device
+        # memory.  Above the budget, slice the f32 X per
         # window block and convert the slice instead — no full-size copy,
         # same math (the plane split is elementwise).
         resident = x.size * x.dtype.itemsize + m_pad * n * 8
@@ -313,10 +302,9 @@ def _gell_spmm(cols, vals, trows, tcols, tvals, wcols, wvals, wbases, x, *,
         else:
             # split16: one (k, 2n) [hi|lo] bf16 source — the SAME source
             # bytes (and 2n stays a power of 2 at n=512, keeping the fast
-            # gather path) but the combine moves to the MXU: the VPU
-            # multi-stream combine measured ~280 GB/s while the
-            # block-diagonal bf16 matmul streams the gathered rows at
-            # full rate with negligible flop cost
+            # gather path) but the combine becomes a block-diagonal bf16
+            # matmul that streams the gathered rows with negligible flop
+            # cost
             hi, lo = _split_planes(x, 2)
             src = jnp.concatenate([hi, lo], axis=1)
         w = n if mode in ("f32", "bf16") else 2 * n
@@ -343,12 +331,11 @@ def _gell_spmm(cols, vals, trows, tcols, tvals, wcols, wvals, wbases, x, *,
                 o = _mxu_combine(a_planes, bmat, rbw // 8, S, w)
                 y = (o[:, :n] + o[:, n:]) if w > n else o
             elif f32_combine == "mxu":
-                # f32-exact MXU combine: one f32 block-diagonal matmul at
-                # HIGHEST (6-pass) precision.  The gathered intermediate
-                # is materialized by the take either way; the matmul
-                # streams it back at full HBM rate where the VPU
-                # mul+reduce pass measured ~280 GB/s.  Flops are
-                # negligible (2*8*n per slot-row even at 6 passes).
+                # f32-exact matmul combine: one f32 block-diagonal matmul
+                # at HIGHEST precision.  The gathered intermediate is
+                # materialized by the take either way; the matmul streams
+                # it back in one pass.  Flops are negligible (2*8*n per
+                # slot-row).
                 a = _blockdiag_A(vl)
                 bmat = g.reshape(rbw // 8, 8 * S, n)
                 y = _mxu_combine([a], bmat, rbw // 8, S, n,
@@ -387,9 +374,8 @@ def _gell_spmm(cols, vals, trows, tcols, tvals, wcols, wvals, wbases, x, *,
         planes = (x,)
 
     # adaptive budget: at giant m the operands themselves (X + Y + the
-    # scan-stacked output) already claim several GB of the 16GB HBM, and
-    # the fixed 3GB intermediate OOMed m=1M (r4 grid); shrink the
-    # gathered-intermediate budget by the resident operand bytes
+    # scan-stacked output) already claim several GB of device memory;
+    # shrink the gathered-intermediate budget by the resident operand bytes
     resident = 2 * x.size * x.dtype.itemsize + m_pad * n * 4
     rb = _chunk_rows(m_pad, S, n, mode,
                      budget=max(_CHUNK_BUDGET - resident, 1 << 28))
@@ -403,7 +389,7 @@ def _gell_spmm(cols, vals, trows, tcols, tvals, wcols, wvals, wbases, x, *,
     def chunk_out(cb, vb):
         idxb = cb.reshape(-1)
         if use_mxu:
-            # values split into bf16 planes too: every MXU product is an
+            # values split into bf16 planes too: every matmul product is an
             # exact bf16 x bf16 with f32 accumulation.  Term budget (v and
             # x planes each carry 8 mantissa bits/plane): split24 keeps
             # all cross terms down to 2^-24 of v*x and drops only vl*lo
@@ -430,9 +416,8 @@ def _gell_spmm(cols, vals, trows, tcols, tvals, wcols, wvals, wbases, x, *,
     if nb == 1:
         y = chunk_out(cols, vals)
     else:
-        # lax.scan, NOT an unrolled loop: each gather's scoped SMEM is
-        # ~360KB, and unrolled chunks stack allocations past the 1MB SMEM
-        # budget (observed compile OOM at nb=3 on m=203k)
+        # lax.scan, not an unrolled loop: unrolled chunks stack each
+        # chunk's gather scratch into one allocation
         _, ys = jax.lax.scan(
             lambda c, blk: (0, chunk_out(*blk)), 0,
             (cols.reshape(nb, rb, S), vals.reshape(nb, rb, S)))
@@ -448,9 +433,9 @@ def _add_tail(y, trows, tcols, tvals, planes, m, n):
         g = g.astype(jnp.float32)
         return g[:, :n] + g[:, n:] if g.shape[1] > n else g
     gt = sum(_collapse(jnp.take(p, tcols, axis=0)) for p in planes)
-    # barrier: XLA-TPU MISCOMPILES the scatter-add when the summed
-    # multi-plane gathers fuse into segment_sum's operand (observed
-    # maxdiff ~5 vs host; bit-exact with the fusion cut here)
+    # correctness barrier: a backend once miscompiled the scatter-add when
+    # the summed multi-plane gathers fused into segment_sum's operand
+    # (observed maxdiff ~5 vs host; bit-exact with the fusion cut here)
     gt = jax.lax.optimization_barrier(gt)
     prods = tvals[:, None] * gt
     return y + jax.ops.segment_sum(prods, trows, num_segments=m + 1,

@@ -1,7 +1,7 @@
 """Device-resident sparse layouts (static-shape jnp arrays) built from host
 formats.
 
-TPU kernels need static shapes; every layout here pads to hardware-friendly
+Jitted kernels need static shapes; every layout here pads to fixed
 multiples and carries the true nnz for flop accounting (the reference counts
 flops on the original CSR nnz regardless of format, spmv_bench.cpp:404-408).
 """
@@ -93,7 +93,7 @@ class DeviceELL:
             raise ValueError(
                 f"ELL padding would need {slots} slots for {csr.nnz} nnz "
                 f"(~{est/2**30:.2f} GiB, width={width}); matrix too skewed "
-                f"for ELL — use SELL-C-sigma or WCOO")
+                f"for ELL — use SELL-C-sigma or gell")
         ell = csr_to_ell(csr, pad_multiple=width_multiple)
         m_pad = _round_up(csr.m, row_multiple)
         cols = np.zeros((m_pad, ell.width), dtype=np.int32)
@@ -146,36 +146,16 @@ class DeviceBSR:
     def from_csr(cls, csr: CSRMatrix, bm: int = 8, bk: int = 128,
                  pad_multiple: int = 1) -> "DeviceBSR":
         bsr = csr_to_bsr(csr, bm=bm, bk=bk)
-        # the Pallas kernel zero-initializes an output row-block only on
-        # its FIRST block (bsr_spmm.py::_kernel) — a block row with no
-        # blocks is never written and returns uninitialized memory (r5
-        # bug, exposed by rbh's low-coverage block parts on scat_524k:
-        # NaNs in the empty slabs).  Guarantee coverage: one zero block
-        # per empty block row.
         brows = np.repeat(np.arange(bsr.mb, dtype=np.int32),
                           np.diff(bsr.block_row_ptr))
-        empty = np.setdiff1d(np.arange(bsr.mb, dtype=np.int32), brows,
-                             assume_unique=False)
-        nb = bsr.num_blocks + len(empty)
+        nb = bsr.num_blocks
         nb_pad = _round_up(max(nb, 1), pad_multiple)
         rows = np.full(nb_pad, bsr.mb, dtype=np.int32)
         cols = np.zeros(nb_pad, dtype=np.int32)
         blocks = np.zeros((nb_pad, bm, bk), dtype=csr.values.dtype)
-        if len(empty):
-            allr = np.concatenate([brows, empty])
-            order = np.argsort(allr, kind="stable")
-            allc = np.concatenate([bsr.block_col_idx,
-                                   np.zeros(len(empty), np.int32)])
-            allb = np.concatenate([
-                bsr.blocks,
-                np.zeros((len(empty), bm, bk), bsr.blocks.dtype)])
-            rows[:nb] = allr[order]
-            cols[:nb] = allc[order]
-            blocks[:nb] = allb[order]
-        else:
-            rows[:nb] = brows
-            cols[:nb] = bsr.block_col_idx
-            blocks[:nb] = bsr.blocks
+        rows[:nb] = brows
+        cols[:nb] = bsr.block_col_idx
+        blocks[:nb] = bsr.blocks
         return cls(
             block_rows=jnp.asarray(rows),
             block_cols=jnp.asarray(cols),
@@ -234,7 +214,7 @@ class DeviceCSC:
     """Column-major sorted COO on device — the CSC traversal order.
 
     The reference's CSC kernels (spmv_kernel_mkl_csc.cpp; lib/storage_formats/
-    csc) walk columns and scatter into y; on TPU this becomes a gather of x
+    csc) walk columns and scatter into y; on the device this becomes a gather of x
     in column order + an (unsorted-segment) scatter-add over rows.  Padding
     entries carry row = m (out of range), col = 0, value = 0.
     """

@@ -6,7 +6,7 @@ and the Merrill/Garland ``merge/cpu_spmv.cpp`` port): the nnz stream is cut
 into equal blocks regardless of row boundaries, each block contributes
 partials, and boundary rows are fixed up in a segmented epilogue.
 
-TPU-first re-design (no per-thread binary search — the balance comes from
+Device re-design (no per-thread binary search — the balance comes from
 the *layout*):
 
 - `merge_path_blocks` (formats/partition.py) cuts [0, nnz) into blocks of
@@ -14,7 +14,7 @@ the *layout*):
   rows (blocks crossing that are cut early), so each block's scatter is a
   (128, T) matmul.
 - Per block, the gathered X rows (T, n) are reduced into the block's
-  <=128 local rows by a value-weighted one-hot matmul on the MXU —
+  <=128 local rows by a value-weighted one-hot matmul —
   A_blk[r_local, t] = v[t] * [row_local[t] == r_local] — run at the
   ambient matmul precision (the harness forces HIGHEST for f32, keeping
   the kernel oracle-exact).  The one-hot flop padding is the price of
@@ -119,7 +119,7 @@ def _merge_spmm(cols, vals, local_rows, out_rows, x, *, m):
 
     def block_y(cb, vb, lb, ob, nb):
         g = jnp.take(x, cb.reshape(-1), axis=0)        # (nb*T, n)
-        # value-weighted one-hot scatter on the MXU at ambient precision
+        # value-weighted one-hot scatter as a matmul at ambient precision
         onehot = jax.nn.one_hot(lb, ROWS_CAP, axis=1, dtype=acc)
         a = onehot * vb[:, None, :].astype(acc)
         parts = jax.lax.dot_general(
@@ -128,8 +128,8 @@ def _merge_spmm(cols, vals, local_rows, out_rows, x, *, m):
             preferred_element_type=acc)                 # (nb, 128, n)
         # out_rows is NOT globally sorted: consecutive blocks usually
         # start fewer than ROWS_CAP rows apart, so their 128-row strips
-        # interleave.  The sorted hint here is undefined behavior on the
-        # TPU sorted-scatter path — keep it off.
+        # interleave, so the sorted-indices hint would be wrong here —
+        # keep it off.
         return jax.ops.segment_sum(parts.reshape(nb * ROWS_CAP, n), ob,
                                    num_segments=m + 1,
                                    indices_are_sorted=False)

@@ -1,18 +1,17 @@
-"""Reorder-block hybrid (RBH): column-cluster reordering into MXU tiles.
+"""Reorder-block hybrid (RBH): column-cluster reordering into dense block tiles.
 
 Re-designs the locality lever behind the reference's MKL inspector-executor
 SpMM (spmm_kernel_mkl_ie.cpp:75-104, mkl_sparse_optimize): on CPU the
 inspector reorganizes the matrix once so the executor rides 256MB of L3
 (105-328 GFLOPS on the scircuit/mac_econ class, amd-64/n=512/mkl_ie_f.csv).
-The TPU has no giant cache; its equivalent lever is STRUCTURE REUSE.  The
-scattered-hypersparse class has high cross_row_similarity /
+A device's caches are far smaller than that working set; its equivalent
+lever is STRUCTURE REUSE.  The scattered-hypersparse class has high cross_row_similarity /
 avg_num_neighbours — columns are reused by runs of adjacent rows — so a
 one-time COLUMN permutation (first-use or centroid order,
 formats/reorder.py) concentrates each 128-row block's nnz into a few
-128-col windows.  Blocks that come out dense enough run on the MXU block
-kernel (ops/pallas/bsr_spmm.py, measured 3.7x dense on banded structure);
-the unclusterable tail falls back to a gather kernel (sell by default —
-the measured f32-exact winner of the scattered class, newkernels_r3.csv).
+128-col windows.  Blocks that come out dense enough run on the block
+kernel (ops/pallas/bsr_spmm.py); the unclusterable tail falls back to a
+gather kernel chosen by the cost model (sell, merge or coo).
 
 The inspect step (ordering choice + block split) runs ONCE on the host,
 like mkl_sparse_optimize.  The per-call price of the permutation — one X
@@ -43,16 +42,15 @@ BLOCK = 128
 MAX_HI_BLOCKS = (2 << 30) // (BLOCK * BLOCK * 4)
 
 
-def auto_threshold(n: int = 512) -> int:
+def auto_threshold(n: int = 512, consts=None) -> int:
     """Break-even nnz per 128x128 block: below it the gather residual is
-    cheaper than a full MXU block pass (per-block cost from the measured
-    v5e constants; residual per-nnz cost from the scattered-class rows of
-    newkernels_r3.csv — sell/gell land at ~29 ns/nnz at n=512)."""
-    from spgrid.ops.costmodel import C
-    per_block = max(BLOCK * n * 4 / C.eff_bw,
-                    2.0 * BLOCK * BLOCK * n / C.mxu_f32) + C.grid_step
-    res_per_nnz = 29e-9 * (n / 512.0)
-    return max(8, int(per_block / res_per_nnz))
+    cheaper than a full dense block pass (both priced with the card's
+    constants, costmodel.C unless ``consts`` is given)."""
+    from spgrid.ops.costmodel import C, residual_per_nnz
+    c = consts or C
+    per_block = max(BLOCK * n * 4 / c.eff_bw,
+                    2.0 * BLOCK * BLOCK * n / c.matmul_f32)
+    return max(8, int(per_block / residual_per_nnz(n, c)))
 
 
 def _block_counts(rows: np.ndarray, cols_new: np.ndarray, k: int):
@@ -138,16 +136,15 @@ class DeviceRBH:
         cols = csr.col_idx.astype(np.int64)
 
         # inspect: score each candidate ordering by ESTIMATED EXECUTOR
-        # COST — MXU passes over kept blocks + gather residual + (for
+        # COST — dense passes over kept blocks + gather residual + (for
         # non-identity orders) the per-call X perm-gather.  Fraction alone
         # would miss that a reorder packing the same nnz into 6x fewer
         # blocks is 6x cheaper on the block part.
-        from spgrid.ops.costmodel import C
+        from spgrid.ops.costmodel import C, residual_per_nnz
         per_block = max(BLOCK * n_hint * 4 / C.eff_bw,
-                        2.0 * BLOCK * BLOCK * n_hint / C.mxu_f32) \
-            + C.grid_step
-        res_per_nnz = 29e-9 * (n_hint / 512.0)
-        src_big = csr.k * n_hint * 4 > (1 << 26)
+                        2.0 * BLOCK * BLOCK * n_hint / C.matmul_f32)
+        res_per_nnz = residual_per_nnz(n_hint, C)
+        src_big = csr.k * n_hint * 4 > C.gather_cliff
         perm_cost = csr.k / (C.gather_slow if src_big else C.gather_fast)
         best = None
         for method in methods:
@@ -188,9 +185,8 @@ class DeviceRBH:
             if residual == "auto":
                 # cost-model pick on the RESIDUAL's own features: sell
                 # pays ~4m padded slots + three (m, n) permutation passes
-                # regardless of nnz, so on a 45%-nnz residual it measured
-                # ~2x merge (r5 first exp_reorder row: rbh/sell 29.3 GF
-                # vs the projected ~55 with an nnz-proportional residual)
+                # regardless of nnz, so on a small residual merge or coo
+                # can be cheaper
                 from spgrid.features.structural import matrix_features
                 from spgrid.ops.costmodel import estimate_spmm_time
                 lf = matrix_features(lo)

@@ -2,22 +2,22 @@
 
 Targets the regime the windowed gather-ELL (ops/gell.py) cannot reach:
 matrices whose rows have no column locality (avg bandwidth a large
-fraction of k) with k large enough that X exceeds the ~64MB gather-rate
-cliff (measured: takes run ~200 Mrow/s below ~64MB source, ~55 Mrow/s
-above — scripts/exp_gather.py, round-2 log).  The reference covers this
+fraction of k) with k large enough that X outgrows the last-level cache,
+where the gather rate falls (the `gather_fast`/`gather_slow` probes of
+`chip_smoke.py --calibrate`).  The reference covers this
 class with inspector-executor CSR on CPU caches
 (spmm_kernel_mkl_ie.cpp:75-104; EPYC lands 105-328 GFLOPS on
 scircuit/mac_econ-class matrices, amd-64/n=512/mkl_ie_f.csv:2-3) — caches
-give EPYC full-bandwidth random 2KB reads; on TPU the equivalent is
-keeping every gather source under the cliff.
+give EPYC full-bandwidth random 2KB reads; the device equivalent is
+keeping every gather source a bounded window of X.
 
 Design: a two-level blocking, entries sorted by (row-chunk, col-window):
 
   for each row chunk i (R rows):              # outer lax.scan, stacked y
     y_i = 0                                   # (R, n) carry
     for each col window j (W cols):           # inner lax.scan
-      xw  = dynamic_slice(x, j*W)             # (W, n): <=64MB source
-      g   = take(xw, local_cols[i,j])         # FAST gather (src < cliff)
+      xw  = dynamic_slice(x, j*W)             # (W, n): bounded source
+      g   = take(xw, local_cols[i,j])         # gather from the window
       y_i += combine(local_rows[i,j], vals[i,j] * g)
 
 Entries are padded per (i, j) block to a shared slot count E; pad
@@ -34,7 +34,7 @@ decides).
 
 The per-block combine is a sorted segment-sum by local row.  The products
 are cut from the gather by an optimization barrier before the scatter-add
-— same XLA-TPU miscompile guard as gell's tail (gell.py:341-354).
+— the same correctness barrier as gell's tail (gell.py::_add_tail).
 """
 
 from __future__ import annotations
@@ -154,8 +154,8 @@ def _scoo_spmm(rows, cols, vals, srows, scols, svals, x, *, m, plan):
             xw = jax.lax.dynamic_slice(x, (j * W, 0), (W, n))
             g = jnp.take(xw, cw, axis=0)
             p = vw[:, None] * g
-            # fusion cut: see module doc (XLA-TPU scatter-add miscompile
-            # when multi-op gathers fuse into the scatter operand)
+            # fusion cut: see module doc (a scatter-add miscompile seen
+            # when multi-op gathers fused into the scatter operand)
             p = jax.lax.optimization_barrier(p)
             # in-place indexed scatter-add: only the E touched rows move
             # (y + segment_sum(...) would rewrite the whole (R, n) carry

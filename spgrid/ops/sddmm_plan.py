@@ -3,15 +3,16 @@
 The reference's masks of record are 0.95-0.98 sparse
 (sddmm_code_bench/sddmm_mask.h:28-34,83-230), and the open question from
 round 2 was whether the sparse-accounted GFLOPS drop at those sparsities
-is inherent to a block-dense MXU kernel or an artifact of the hard-coded
+is inherent to a block-dense kernel or an artifact of the hard-coded
 128x128 mask blocking.
 
 This module answers it per mask, on host, before benchmarking:
 
 - ``block_occupancy(mask, bm, bk)`` counts occupied (bm, bk) blocks
   exactly (one O(nnz) bincount — no densification).
-- ``choose_sddmm_blocks(mask, n)`` evaluates the measured v5e cost model
-  over a candidate block grid and returns the argmin plan.  For
+- ``choose_sddmm_blocks(mask, n)`` evaluates the card's per-block cost
+  model over the block shapes the kernel takes and returns the argmin
+  plan.  For
   band_and_random masks at 0.95 every 128^2 block is occupied (the random
   component visits each block w.p. ~1-exp(-819/...)), so no blocking
   choice can skip work — the drop IS inherent and the planner proves it
@@ -20,8 +21,8 @@ This module answers it per mask, on host, before benchmarking:
   small along the row dimension where the decay tail thins out.
 
 The per-block cost model reuses the measured constants of
-spgrid.ops.costmodel (MXU rate, effective HBM bandwidth, ~300ns Pallas
-grid-step overhead).
+spgrid.ops.costmodel (f32 matmul rate, streaming bandwidth): each block
+is bound by its product or by reading its Q and K row panels.
 """
 
 from __future__ import annotations
@@ -34,10 +35,8 @@ import numpy as np
 from spgrid.formats.csr import CSRMatrix
 from spgrid.ops.costmodel import C
 
-# candidate (bm, bk) mask blockings: bm=8 measured 15x worse (grid-step
-# floor, see run_sddmm docstring) so candidates stay MXU-height; bk spans
-# lane multiples up to 512 to amortize grid steps on dense-ish masks
-CANDIDATES = ((128, 128), (128, 256), (128, 512), (256, 128), (256, 256))
+# candidate (bm, bk) mask blockings (powers of two; the XLA form runs any)
+CANDIDATES = ((64, 128), (128, 128), (128, 256), (256, 128), (256, 256))
 
 
 @dataclasses.dataclass
@@ -83,12 +82,12 @@ def reachable_blocks(length: int, bm: int, bk: int, band_size: int) -> int:
 
 
 def _est_time(occupied: int, bm: int, bk: int, n: int) -> float:
-    """Per-plan time: each occupied block costs max(MXU matmul, operand
-    DMA) + a grid step; d(=n) is tiled inside the kernel so VMEM fits."""
+    """Per-plan time: each occupied block costs max(f32 block product,
+    reading its Q and K row panels)."""
     per_block = max(
-        2.0 * bm * bk * n / C.mxu_f32,
+        2.0 * bm * bk * n / C.matmul_f32,
         (bm + bk) * n * 4.0 / C.eff_bw,
-    ) + C.grid_step
+    )
     out_bytes = occupied * bm * bk * 4.0
     return occupied * per_block + out_bytes / C.eff_bw
 

@@ -23,21 +23,26 @@ def test_gold_fast_matches_kahan():
 
 
 def test_run_spmm_row():
+    import math
     csr = artificial_matrix_generation(200, 200, 6, 2, seed=14)
     row = run_spmm(csr, kernel="csr_xla_coo", config=small_cfg())
     assert row.errors_passed == 1
     assert row.gflops > 0
     assert row.csr_nnz == csr.nnz
-    assert 0 < row.roofline_frac <= 9.99
+    # the CPU backend has no published peak: no roofline columns
+    assert math.isnan(row.roofline_frac) and math.isnan(row.sol_time)
+    assert row.device == "cpu"
     assert row.avg_nnz_per_row == pytest.approx(6, rel=0.2)
 
 
-def test_run_spmm_all_kernels():
+@pytest.mark.parametrize("kernel", [
+    "csr_xla_coo", "ell_xla", "bsr_xla", "bsr_pallas", "panel", "dense",
+    "gemm_bound", "auto", "sell", "merge", "gell", "rbh", "csc", "cv_panel",
+])
+def test_run_spmm_all_kernels(kernel):
     csr = artificial_matrix_generation(150, 150, 8, 2, seed=14, bw=0.3)
-    for kernel in ("csr_xla_coo", "ell_xla", "bsr_xla", "dense",
-                   "gemm_bound", "auto"):
-        row = run_spmm(csr, kernel=kernel, config=small_cfg())
-        assert row.errors_passed == 1, kernel
+    row = run_spmm(csr, kernel=kernel, config=small_cfg())
+    assert row.errors_passed == 1, kernel
 
 
 def test_csv_roundtrip(tmp_path):
@@ -90,11 +95,13 @@ def test_run_sddmm_standalone():
     from spgrid.core.config import BenchConfig
 
     cfg = BenchConfig(num_cols=32, min_time_s=0.02, sparsity=0.85, seed=3)
-    for use_pallas in (True, False):
-        row = run_sddmm(128, config=cfg, use_pallas=use_pallas)
+    for layout in ("bsr", "coo"):
+        row = run_sddmm(128, config=cfg, layout=layout)
         assert row.errors_passed == 1
         assert row.csr_m == 128 and row.gflops > 0
-        assert row.kernel == ("sddmm_pallas" if use_pallas else "sddmm_xla")
+        assert row.kernel == f"sddmm_{layout}"
+    with pytest.raises(ValueError):
+        run_sddmm(128, config=cfg, layout="pallas")
 
 
 def test_fp64_spmv_cli():
@@ -133,7 +140,8 @@ def test_run_spmm_autotune_kernel():
     cfg = BenchConfig(num_cols=32, min_time_s=0.02)
     row = run_spmm(csr, kernel="autotune", config=cfg)
     assert row.errors_passed == 1
-    assert row.fmt in ("dense", "bsr_pallas", "panel_pallas", "ell", "coo")
+    assert row.fmt in ("dense", "bsr_pallas", "panel", "ell", "coo",
+                       "gell", "merge", "sell", "rbh")
 
 
 def test_autotune_raises_when_nothing_runnable():
@@ -147,19 +155,6 @@ def test_autotune_raises_when_nothing_runnable():
     x = jnp.asarray(np.ones((64, 8), np.float32))
     with pytest.raises(RuntimeError):
         autotune_spmm(csr, x, candidates=("nonexistent_fmt",))
-
-
-def test_wrow_adapter_rejects_wide_operand():
-    import pytest
-    from spgrid.ops.dispatch import build, spmm_fn
-    from spgrid.formats import random_csr
-    import jax.numpy as jnp
-    import numpy as np
-
-    csr = random_csr(64, 64, 0.02, seed=2)
-    a = build(csr, "wrow_spmv")
-    with pytest.raises(ValueError):
-        spmm_fn("wrow_spmv")(a, jnp.asarray(np.ones((64, 8), np.float32)))
 
 
 def test_cli_param_stride(tmp_path, capsys):
@@ -224,7 +219,7 @@ def test_static_timing_protocol():
 
 
 def test_auto_tol_dispatch_offers_cv_kernels():
-    """r5: tolerance-enabled dispatch is a real path — at tolerance >=
+    """Tolerance-enabled dispatch is a real path — at tolerance >=
     CV_TOLERANCE the value-compressed kernels join the candidate set
     (explicit opt-in; the headline `auto` stays f32-exact), and the
     giant-m windowed regime where cv_gell's model fails is gated out."""

@@ -2,8 +2,8 @@
 
 The double-float gold and on-device metric partials must agree with the
 host oracle to far better than any gate threshold; these tests pin that
-agreement on the CPU backend (the transforms are pure IEEE f32 ops, so
-the TPU computes the same values).
+agreement on the CPU backend (the transforms are pure IEEE f32 ops;
+chip_smoke.py phase 4 checks the same agreement on the GPU).
 """
 import numpy as np
 import jax.numpy as jnp

@@ -111,7 +111,7 @@ def test_dist_pipeline_pallas_interpret():
 
     mesh = make_mesh(("data", "model"), shape=(2, 4))
     attn = DistSparseAttention.from_csr(wk, wk, wk, mask, num_shards=4)
-    step = make_dist_pipeline_step(mesh, attn, use_pallas=True, interpret=True)
+    step = make_dist_pipeline_step(mesh, attn, use_pallas=True)
     xd = jax.device_put(jnp.asarray(x),
                         NamedSharding(mesh, P(None, "data")))
     y = np.asarray(step(xd))

@@ -1,6 +1,7 @@
 """True multi-process (multi-"host") distributed SpMM over gloo.
 
-SURVEY §4 TPU plan: "multi-host tests on CPU backend via jax.distributed".
+SURVEY §4 accelerator plan: "multi-host tests on CPU backend via
+jax.distributed".
 Spawns 2 worker processes that federate into a 4-device global mesh and run
 the halo-exchange SpMM; each checks against the float64 host gold.
 """

@@ -9,7 +9,7 @@ from spgrid.gen import artificial_matrix_generation
 from spgrid.ops import (
     DeviceCOO, DeviceELL, DeviceBSR, DeviceSELL,
     spmv_coo, spmm_coo, spmv_ell, spmm_ell, spmm_bsr, spmv_sell,
-    spmm_dense, sddmm_coo, sddmm_dense, bsr_spmm, bsr_sddmm,
+    spmm_dense, sddmm_coo, sddmm_dense, sddmm_bsr, bsr_spmm,
     select_format, autotune_spmm,
 )
 
@@ -71,7 +71,7 @@ def test_spmm_dense(prob):
 def test_bsr_spmm_pallas(prob):
     csr, x, gold = prob
     bsr = DeviceBSR.from_csr(csr, bm=8, bk=128)
-    check(gold, bsr_spmm(bsr, jnp.asarray(x), interpret=True))
+    check(gold, bsr_spmm(bsr, jnp.asarray(x)))
 
 
 def test_bsr_spmm_pallas_wide_n(prob):
@@ -80,7 +80,7 @@ def test_bsr_spmm_pallas_wide_n(prob):
     bsr = DeviceBSR.from_csr(csr, bm=16, bk=128)
     x3 = np.concatenate([x, x[:, :33]], axis=1)
     gold3 = np.concatenate([gold, gold[:, :33]], axis=1)
-    check(gold3, bsr_spmm(bsr, jnp.asarray(x3), interpret=True))
+    check(gold3, bsr_spmm(bsr, jnp.asarray(x3)))
 
 
 def test_sddmm_coo():
@@ -103,8 +103,9 @@ def test_bsr_sddmm_pallas():
     q = (rng.random((96, 48)).astype(np.float32) + 0.1)
     k = (rng.random((96, 48)).astype(np.float32) + 0.1)
     mbsr = DeviceBSR.from_csr(mask, bm=8, bk=128)
-    out = np.asarray(bsr_sddmm(mbsr, jnp.asarray(q), jnp.asarray(k),
-                               interpret=True))
+    # the pipeline's block SDDMM (the XLA form: the Triton kernel lost
+    # its A/B on the H100 and was removed)
+    out = np.asarray(sddmm_bsr(mbsr, jnp.asarray(q), jnp.asarray(k)))
     gold_dense = mask.to_dense().astype(np.float64) * (
         q.astype(np.float64) @ k.T.astype(np.float64))
     # reassemble dense from blocks
@@ -116,15 +117,15 @@ def test_bsr_sddmm_pallas():
     check(gold_dense, got[:96, :96])
 
 
-def test_select_format_rules():
+def test_select_format_rules(test_consts):
     from spgrid.features import matrix_features
     dense_f = matrix_features(random_csr(64, 64, density=0.5, seed=1))
-    assert select_format(dense_f) == "dense"
+    assert select_format(dense_f, consts=test_consts) == "dense"
     sparse_f = matrix_features(random_csr(2000, 2000, density=0.001, seed=1))
-    # cost-model era: tiny hypersparse may still be MXU-trivial; any of
-    # the gather family or dense is a sane pick at this size
-    assert select_format(sparse_f) in ("ell", "coo", "gell", "dense",
-                                   "bsr_pallas")
+    # tiny hypersparse may still be cheap to densify; any of the gather
+    # family or dense is a sane pick at this size
+    assert select_format(sparse_f, consts=test_consts) in (
+        "ell", "coo", "gell", "dense", "bsr_pallas")
 
 
 def test_autotune_runs(prob):
@@ -137,8 +138,8 @@ def test_autotune_runs(prob):
 
 def test_autotune_default_candidates_match_auto():
     """Measured dispatch must be able to pick every kernel cost-based
-    dispatch can (VERDICT r4 weak #4: the stale default quietly excluded
-    gell/merge/sell, the kernels that win the hypersparse classes)."""
+    dispatch can (a stale default once quietly excluded gell/merge/sell,
+    the kernels of the hypersparse classes)."""
     import inspect
     from spgrid.ops.costmodel import AUTO_CANDIDATES
     from spgrid.ops.dispatch import autotune_spmm as at

@@ -1,12 +1,10 @@
-"""Panel and C-stationary BSR Pallas kernels (interpret mode on CPU)."""
+"""Vertical-panel SpMM layout and format routing."""
 
 import numpy as np
 import jax.numpy as jnp
 
 from spgrid.formats import random_csr, dense_to_csr
-from spgrid.ops import (
-    DeviceBSRCol, bsr_spmm_cstat, DevicePanels, panel_spmm,
-)
+from spgrid.ops import DevicePanels, panel_spmm
 
 
 def _check(kernel, dev, csr, n=96, atol=1e-4):
@@ -14,30 +12,6 @@ def _check(kernel, dev, csr, n=96, atol=1e-4):
     y = np.asarray(kernel(dev, jnp.asarray(x)))
     gold = csr.to_dense() @ x
     np.testing.assert_allclose(y, gold, rtol=1e-4, atol=atol)
-
-
-def test_cstat_single_band():
-    csr = random_csr(100, 130, 0.08, seed=1)
-    _check(bsr_spmm_cstat, DeviceBSRCol.from_csr(csr, bm=8, bk=128,
-                                                 band_rows=128), csr)
-
-
-def test_cstat_multi_band():
-    csr = random_csr(300, 200, 0.05, seed=2)
-    dev = DeviceBSRCol.from_csr(csr, bm=8, bk=128, band_rows=128)
-    assert dev.bands == 3
-    _check(bsr_spmm_cstat, dev, csr)
-
-
-def test_cstat_band_padding():
-    # bands with very different block counts exercise the pad slots
-    dense = np.zeros((256, 256), dtype=np.float32)
-    dense[:8, :] = 1.0            # band 0: all block-cols
-    dense[200, 5] = 3.0           # band 1: one block
-    csr = dense_to_csr(dense)
-    dev = DeviceBSRCol.from_csr(csr, bm=8, bk=128, band_rows=128)
-    assert dev.max_nb >= 2
-    _check(bsr_spmm_cstat, dev, csr)
 
 
 def test_panels_basic():
@@ -67,47 +41,32 @@ def test_dispatch_new_formats():
     csr = random_csr(64, 64, 0.2, seed=5)
     x = np.random.default_rng(1).random((64, 32)).astype(np.float32)
     gold = csr.to_dense() @ x
-    for fmt in ("bsrc_pallas", "panel_pallas"):
+    for fmt in ("bsr_pallas", "panel"):
         a = build(csr, fmt)
         y = np.asarray(spmm_fn(fmt)(a, jnp.asarray(x)))[:64]
         np.testing.assert_allclose(y, gold, rtol=1e-4, atol=1e-4)
 
 
-def test_select_format_regimes():
+# Kernel classes: dense-block execution vs the gather family.
+BLOCK_CLASS = ("dense", "bsr_pallas", "panel", "rbh")
+GATHER_CLASS = ("gell", "ell", "coo", "merge", "sell", "scoo")
+
+
+def test_select_format_regimes(test_consts):
     from spgrid.ops.dispatch import select_format
     from spgrid.features import matrix_features
     from spgrid.gen import artificial_matrix_generation
 
-    # cost-model era (r2): tiny matrices are MXU-trivial, so dense/bsr
-    # both legitimately win; large hypersparse must route to the gather
-    # kernel family
+    # small or locally dense matrices cost little to run as dense blocks;
+    # large hypersparse ones must route to the gather kernel family
     banded = artificial_matrix_generation(512, 512, 64, 8, "normal", seed=1,
                                           placement="random", bw=0.05)
-    assert select_format(matrix_features(banded)) in ("bsr_pallas", "dense")
+    assert select_format(matrix_features(banded),
+                         consts=test_consts) in BLOCK_CLASS
     dense_m = random_csr(256, 256, 0.4, seed=1)
-    assert select_format(matrix_features(dense_m)) == "dense"
+    assert select_format(matrix_features(dense_m),
+                         consts=test_consts) in BLOCK_CLASS
     hyper = artificial_matrix_generation(60000, 60000, 5, 1.7, "normal",
                                          seed=1, placement="random", bw=0.9)
-    assert select_format(matrix_features(hyper)) in ("gell", "ell", "coo")
-
-
-def test_wcoo_bands_kernel():
-    from spgrid.ops import DeviceWCOOBands, wcoo_spmm_aligned
-    csr = random_csr(300, 500, 0.01, seed=7)
-    dev = DeviceWCOOBands.from_csr(csr, band_rows=256)
-    x = np.random.default_rng(2).random((500, 40)).astype(np.float32)
-    y = np.asarray(wcoo_spmm_aligned(dev, jnp.asarray(x)))
-    np.testing.assert_allclose(y, csr.to_dense() @ x, rtol=1e-4, atol=1e-4)
-    # spmv path
-    yv = np.asarray(wcoo_spmm_aligned(dev, jnp.asarray(x[:, 0])))
-    np.testing.assert_allclose(yv, csr.to_dense() @ x[:, 0], rtol=1e-4,
-                               atol=1e-4)
-
-
-def test_dispatch_wcoo_bands():
-    from spgrid.ops.dispatch import build, spmm_fn
-    csr = random_csr(200, 200, 0.01, seed=8)
-    x = np.random.default_rng(3).random((200, 16)).astype(np.float32)
-    a = build(csr, "wcoo_bands")
-    y = np.asarray(spmm_fn("wcoo_bands")(a, jnp.asarray(x)))[:200]
-    np.testing.assert_allclose(y, csr.to_dense() @ x, rtol=1e-4, atol=1e-4)
+    assert select_format(matrix_features(hyper),
+                         consts=test_consts) in GATHER_CLASS

